@@ -6,24 +6,44 @@
 Phases, each of which fails the run (non-zero exit) when it goes wrong:
 
 1. Card and build: the card's name and power limit, then an nvcc build of
-   every CUDA kernel of the port from saena_tpu_torch/csrc/.
-2. Kernel against its plain PyTorch version on the card, for the 48^3
-   Poisson level-0 operator (7 diagonals), a wide-offset band and a
-   rectangular block with x_row0 > 0; plain SpMV, Jacobi sweep, Chebyshev
-   scaled residual and V-cycle residual; f32, bf16 data and f64.
-   Tolerance: row-sum-scaled error (|kernel - plain| over the same
-   expression evaluated on absolute values) <= 1e-5 for f32 and bf16 data,
-   <= 1e-12 for f64; zero padding preserved exactly.
-3. The main path through the public API on the card: the 48^3 Poisson
-   pCG solve (Options(remove_boundary=True)). f64 must reproduce the
-   poisson3d_48 golden (tests/goldens/convergence.json: levels, iterations,
-   residual history at rtol 1e-6); f32 must reach rel_res < 1e-8 within
-   100 iterations. Launch counters are zeroed just before and read just
-   after; every kernel must have launched.
-4. Times at the main path's shapes (48^3 level 0), by CUDA events over
-   graph-replayed launches: kernel, plain version, one cuSPARSE CSR product
-   as a yardstick, and the bound (bytes over memory rate vs operations over
-   peak rate).
+   every CUDA kernel of the port from saena_tpu_torch/csrc/ (DIA, strip,
+   strip8), all nvcc processes started together. Then the host levels of the
+   48^3 Poisson interior (the poisson3d_48 golden's levels), whose operators
+   give the kernels their main-path shapes.
+2. Each kernel against its plain PyTorch version on the card, in f32 and
+   f64 (the DIA kernel also with bf16 data). Tolerance: row-sum-scaled
+   error (|kernel - plain| over the same expression evaluated on absolute
+   values) <= 1e-5 for f32 and bf16 data, <= 1e-12 for f64; zero padding
+   preserved exactly.
+   - DIA: the 48^3 level-0 operator (7 diagonals), the wide-stencil level 1
+     (101 diagonals), a wide-offset band and a rectangular block with
+     x_row0 > 0; plain SpMV, Jacobi sweep, Chebyshev scaled residual and
+     V-cycle residual.
+   - strip: the level-0 tentative prolongator Pt as the planner builds it
+     and the level-2 A at every perrow (1, 2, 4, 8, 16); some case must
+     have krb > 1.
+   - strip8: Pt^T of level 0 as the planner builds it, the level-2 A at
+     every perrow (1, 2, 4) and a synthetic interval-mode layout whose last
+     tile's strip base reaches past the last strip of x.
+3. The main path on the card, launch counters zeroed just before each run
+   and read just after:
+   (a) the 48^3 Poisson pCG solve through Matrix/AMG
+       (Options(remove_boundary=True)) with the formats the port's picker
+       chooses on the card. f64 must reproduce the poisson3d_48 golden
+       (tests/goldens/convergence.json: levels, iterations, residual history
+       at rtol 1e-6) with wide DIA at level 1; f32 must reach rel_res < 1e-8
+       within 100 iterations.
+   (b) the same f64 solve on the same host levels, with the device formats
+       chosen here by the port's own builders: every Pt in strip, every Pt^T
+       in strip8 (inside SmoothedP/SmoothedR), the level-2 A in whichever of
+       strip and strip8 the picker did not choose. Same golden check.
+   Every kernel must have launched in phase 3.
+4. Times at the main path's shapes, by CUDA events over graph-replayed
+   calls: kernel, plain version, one cuSPARSE CSR product of the same
+   operator as a yardstick, and the bound (bytes over memory rate vs
+   operations over peak rate; bytes count the format's arrays the kernel
+   reads, x and y once each). Then the H100 cost constants of the format
+   picker, fitted from these times.
 
 The second-to-last line is one JSON object listing every ported kernel; the
 last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -31,6 +51,8 @@ result, when no CUDA card is present or the port's package is missing.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import os
 import re
@@ -110,14 +132,14 @@ def eager_ms(fn, reps: int = 200) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-# ------------------------------------------------------- phase 2: kernel --
+def bound(nbytes: int, flops: int, dname: str) -> tuple[float, str]:
+    """(bound ms, "bytes" or "operations") at the published peaks."""
+    b_bytes = nbytes / HBM_BPS * 1e3
+    b_ops = flops / PEAK_FLOPS[dname] * 1e3
+    return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops else "operations")
 
-VARIANTS = {                      # name: (has_rhs, has_dinv, c, add_x)
-    "spmv": (False, False, 1.0, False),
-    "jacobi": (True, True, 2.0 / 3.0, True),
-    "cheb": (True, True, 0.37, False),
-    "residual": (True, False, -1.0, False),
-}
+
+# ------------------------------------------------------------ host levels --
 
 
 def _poisson_interior(m):
@@ -127,7 +149,39 @@ def _poisson_interior(m):
     return remove_boundary_nodes(laplacian3D(m, m, m))[0]
 
 
-def kernel_cases(dev):
+def host_levels():
+    """SetupInfo of the port's host setup of the m^3 Poisson interior (f64,
+    CPU device levels): csr_levels, Ps, Rs and the structural (agg, wq)."""
+    import torch
+
+    from saena_tpu_torch.amg.hierarchy import setup
+    from saena_tpu_torch.config import Options
+
+    _, info = setup(_poisson_interior(M), Options(), dtype=torch.float64,
+                    device="cpu")
+    return info
+
+
+def main_path_operators(info) -> dict:
+    """Host CSR of the gather kernels' main-path operators."""
+    from saena_tpu_torch.amg.prolongation import tentative_prolongator
+
+    Pt = tentative_prolongator(info.structs[0][0], info.sizes[1])
+    return {"L0_Pt": Pt, "L0_PtT": Pt.T.tocsr(), "L1_A": info.csr_levels[1],
+            "L2_A": info.csr_levels[2]}
+
+
+# ------------------------------------------------- phase 2: DIA kernel --
+
+VARIANTS = {                      # name: (has_rhs, has_dinv, c, add_x)
+    "spmv": (False, False, 1.0, False),
+    "jacobi": (True, True, 2.0 / 3.0, True),
+    "cheb": (True, True, 0.37, False),
+    "residual": (True, False, -1.0, False),
+}
+
+
+def kernel_cases(dev, ops):
     """(name, data f64 (ndiag, n_pad), offsets, m_pad, x_row0, n) cases at
     f64 on the card; n = rows that are not padding."""
     import scipy.sparse as sp
@@ -139,6 +193,10 @@ def kernel_cases(dev):
     A = _poisson_interior(M)
     D = dia_from_csr(A, torch.float64, dev)
     cases.append((f"poisson{M}", D.data, D.offsets, D.n_pad, 0, A.shape[0]))
+    A1 = ops["L1_A"]
+    D = dia_from_csr(A1, torch.float64, dev)
+    cases.append((f"level1_{len(D.offsets)}diag", D.data, D.offsets, D.n_pad, 0,
+                  A1.shape[0]))
     n = 2000
     diags = [0, 1, -1, 300, -300, 1500, -1500]
     W = sp.diags([np.random.default_rng(k).standard_normal(n - abs(d))
@@ -155,8 +213,8 @@ def kernel_cases(dev):
     return cases
 
 
-def check_kernels(dev):
-    """Kernel vs plain for every case x variant x dtype; returns
+def check_kernels(dev, ops):
+    """DIA kernel vs plain for every case x variant x dtype; returns
     (rows of (case, variant, dtype, scaled_err, max_abs_err), worst
     failure or None)."""
     import torch
@@ -164,7 +222,7 @@ def check_kernels(dev):
     from saena_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_plain
 
     rows, bad = [], None
-    for case, data64, offs, m_pad, x_row0, n in kernel_cases(dev):
+    for case, data64, offs, m_pad, x_row0, n in kernel_cases(dev, ops):
         n_pad = data64.shape[1]
         rng = np.random.default_rng(len(case))
         nx = n if m_pad == n_pad else m_pad      # zero-padded in square mode
@@ -202,7 +260,7 @@ def check_kernels(dev):
                 ok = (yk.dtype == cdt and yk.shape == (n_pad,) and pad_ok
                       and np.isfinite(err) and err <= TOL[dname])
                 rows.append((case, vname, dname, err, abs_err))
-                print(f"  {case:<14} {vname:<9} {dname:<9} scaled_err={err:.3e}"
+                print(f"  {case:<16} {vname:<9} {dname:<9} scaled_err={err:.3e}"
                       f" max_abs_err={abs_err:.3e} pad_zero={pad_ok}"
                       f" {'ok' if ok else 'FAIL'}")
                 if not ok and bad is None:
@@ -210,24 +268,153 @@ def check_kernels(dev):
     return rows, bad
 
 
+# ----------------------------------------- phase 2: strip / strip8 kernels --
+
+
+def with_vals(Mx, vals):
+    """The same layout (shared index arrays) with other values."""
+    out = copy.copy(Mx)
+    out.vals = vals
+    return out
+
+
+def synthetic_interval(dev, n_rb, tiles_per_rb, n_strips, perrow, seed):
+    """An interval-mode Strip8Matrix (f64) with dense random tiles. Row
+    block rb holds tiles_per_rb tiles (the last row block one fewer, so
+    gather_idx has a padding entry); bases are random in [0, n_strips - 8]
+    and the last tile's base is n_strips - 3, so its sublanes 3..7 read past
+    the last strip (zeros)."""
+    import torch
+
+    from saena_tpu_torch.ops.strip8_spmv import Strip8Matrix, _padded_tiles
+
+    rng = np.random.default_rng(seed)
+    Q = 128 // perrow
+    counts = np.full(n_rb, tiles_per_rb)
+    counts[-1] -= 1
+    n_tiles = int(counts.sum())
+    n_pad = _padded_tiles(n_tiles)
+    idx = np.zeros((n_pad, 8, 128), dtype=np.int8)
+    vals = np.zeros((n_pad, 8, 128))
+    idx[:n_tiles] = rng.integers(0, 128, (n_tiles, 8, 128))
+    vals[:n_tiles] = rng.standard_normal((n_tiles, 8, 128))
+    bases = np.zeros(n_pad, dtype=np.int32)
+    bases[:n_tiles] = rng.integers(0, max(1, n_strips - 7), n_tiles)
+    bases[n_tiles - 1] = n_strips - 3
+    gather = np.full((n_rb, tiles_per_rb), n_pad, dtype=np.int32)
+    off = np.cumsum(counts) - counts
+    for t in range(tiles_per_rb):
+        mask = counts > t
+        gather[mask, t] = off[mask] + t
+    t = lambda a: torch.from_numpy(a).to(dev)
+    n_rows = n_rb * Q
+    return Strip8Matrix(t(idx), t(vals), t(bases), t(gather),
+                        shape=(n_rows, n_strips * 128),
+                        nnz=int(np.count_nonzero(vals)), perrow=perrow,
+                        mode="interval", n_cols_pad=n_strips * 128,
+                        n_out=n_rows)
+
+
+def gather_cases(dev, ops):
+    """{name: (kind, f64 layout on the card, host CSR or None)} for the
+    strip and strip8 checks and times."""
+    import torch
+
+    from saena_tpu_torch.ops.strip8_spmv import strip8_from_csr
+    from saena_tpu_torch.ops.strip_spmv import strip_from_csr
+
+    f64 = torch.float64
+    cases = {"L0_Pt": ("strip", strip_from_csr(ops["L0_Pt"], f64, dev),
+                       ops["L0_Pt"]),
+             "L0_PtT": ("strip8", strip8_from_csr(ops["L0_PtT"], f64, dev),
+                        ops["L0_PtT"])}
+    A2 = ops["L2_A"]
+    for pr in (1, 2, 4, 8, 16):
+        cases[f"L2_A_strip_pr{pr}"] = (
+            "strip", strip_from_csr(A2, f64, dev, perrow=pr), A2)
+    for pr in (1, 2, 4):
+        cases[f"L2_A_strip8_pr{pr}"] = (
+            "strip8", strip8_from_csr(A2, f64, dev, perrow=pr), A2)
+    cases["interval_edge"] = ("strip8", synthetic_interval(dev, 16, 3, 10, 2, 3),
+                              None)
+    return cases
+
+
+def check_gather(dev, cases):
+    """strip / strip8 kernel vs plain in f32 and f64 for every case.
+    Returns (rows of (case, dtype, scaled_err, max_abs_err), failure or
+    None)."""
+    import torch
+
+    from saena_tpu_torch.ops import strip8_spmv as s8
+    from saena_tpu_torch.ops import strip_spmv as s1
+
+    rows, bad = [], None
+    for case, (kind, M64, _) in cases.items():
+        mod = s1 if kind == "strip" else s8
+        kern = mod.strip_spmv if kind == "strip" else mod.strip8_spmv
+        plain = mod.strip_spmv_plain if kind == "strip" else mod.strip8_spmv_plain
+        n = M64.shape[0]
+        rng = np.random.default_rng(len(case))
+        x64 = torch.zeros(M64.n_cols_pad, dtype=torch.float64, device=dev)
+        x64[: M64.shape[1]] = torch.tensor(rng.standard_normal(M64.shape[1]),
+                                           device=dev)
+        y_abs = plain(with_vals(M64, M64.vals.abs()), x64.abs())
+        for dname in ("float32", "float64"):
+            dt = getattr(torch, dname)
+            Mx = M64 if dt == torch.float64 else with_vals(M64, M64.vals.to(dt))
+            x = x64.to(dt)
+            yk = kern(Mx, x)
+            yp = plain(Mx, x)
+            torch.cuda.synchronize()
+            diff = (yk.double() - yp.double()).abs()
+            err = float((diff / y_abs.clamp_min(1e-300)).max())
+            abs_err = float(diff.max())
+            pad_ok = bool((yk[n:] == 0).all())
+            ok = (yk.dtype == dt and yk.shape == yp.shape and pad_ok
+                  and np.isfinite(err) and err <= TOL[dname])
+            rows.append((case, dname, err, abs_err))
+            geo = (f"perrow={Mx.perrow} krb={Mx.krb} pairs={Mx.idx.shape[0]}"
+                   if kind == "strip" else
+                   f"perrow={Mx.perrow} mode={Mx.mode} tiles={Mx.idx.shape[0]}")
+            print(f"  {kind:<6} {case:<16} {dname:<8} {geo:<36} "
+                  f"scaled_err={err:.3e} max_abs_err={abs_err:.3e} "
+                  f"pad_zero={pad_ok} {'ok' if ok else 'FAIL'}")
+            if not ok and bad is None:
+                bad = f"{kind}/{case}/{dname}: err {err:.3e}, pad {pad_ok}"
+    if bad is None and not any(k == "strip" and M.krb > 1
+                               for k, M, _ in cases.values()):
+        bad = "no strip case has krb > 1"
+    return rows, bad
+
+
 # --------------------------------------------------- phase 3: main path --
 
 
-def solve_main_path(dev, dtype, golden):
-    """48^3 pCG through Matrix/AMG on the card. Returns (report dict,
-    failure message or None)."""
+def level_formats(H) -> list:
+    """Per level: A, P and R formats, with the Pt/PtT inside SmoothedP/R."""
+    def name(Mx):
+        if Mx is None:
+            return None
+        inner = getattr(Mx, "Pt", None) or getattr(Mx, "PtT", None)
+        s = type(Mx).__name__
+        if inner is not None:
+            s += f"[{name(inner)}]"
+        if type(Mx).__name__ == "StripMatrix":
+            s += f"(pr{Mx.perrow},krb{Mx.krb})"
+        elif type(Mx).__name__ == "Strip8Matrix":
+            s += f"(pr{Mx.perrow},{Mx.mode})"
+        return s
+    return [{"A": name(L.A), "P": name(L.P), "R": name(L.R)} for L in H.levels]
+
+
+def run_solve(solver, dev, golden, label):
+    """Warm solve, then a timed solve with the golden check. Returns
+    (report dict, failure or None)."""
     import torch
 
-    from saena_tpu_torch import AMG, Matrix, Options, generators
+    from saena_tpu_torch import generators
 
-    A = Matrix()
-    A.set_csr(generators.laplacian3D(M, M, M))
-    A.assemble(device=dev, dtype=dtype)
-    solver = AMG(device=dev, dtype=dtype)
-    t0 = time.perf_counter()
-    solver.set_matrix(A, Options(remove_boundary=True))
-    setup_s = time.perf_counter() - t0
-    solver.set_rhs(generators.laplacian3D_set_rhs(M, M, M))
     solver.solve_pCG()                                   # warm solve
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
@@ -241,13 +428,12 @@ def solve_main_path(dev, dtype, golden):
     hist = res.history[: it + 1].cpu().numpy()
     err = float(np.abs(u - generators.laplacian3D_solution(M, M, M)).max())
     info = solver.info
-    on_card = all(t.device.type == "cuda" for t in solver.hierarchy.tensors())
-    rep = {"dtype": str(dtype), "levels": info.sizes, "formats": info.formats,
-           "iters": it, "rel_res": rel, "true_res": float(res.true_res),
-           "max_err_vs_solution": err, "setup_s": setup_s,
-           "setup_phases_s": {k: round(v, 3) for k, v in info.phases.items()},
-           "solve_ms": e0.elapsed_time(e1), "all_tensors_on_cuda": on_card}
-    print(info.table())
+    on_card = all(t.device.type == dev.type for t in solver.hierarchy.tensors())
+    rep = {"run": label, "dtype": str(solver.dtype), "levels": info.sizes,
+           "formats": level_formats(solver.hierarchy), "iters": it,
+           "rel_res": rel, "true_res": float(res.true_res),
+           "max_err_vs_solution": err, "solve_ms": e0.elapsed_time(e1),
+           "all_tensors_on_card": on_card}
     print("  " + json.dumps(rep))
     if not on_card:
         return rep, "a hierarchy tensor is not on the card"
@@ -266,12 +452,93 @@ def solve_main_path(dev, dtype, golden):
     return rep, None
 
 
+def solve_main_path(dev, dtype, golden):
+    """48^3 pCG through Matrix/AMG on the card. Returns (solver, report
+    dict, failure message or None)."""
+    from saena_tpu_torch import AMG, Matrix, Options, generators
+
+    A = Matrix()
+    A.set_csr(generators.laplacian3D(M, M, M))
+    A.assemble(device=dev, dtype=dtype)
+    solver = AMG(device=dev, dtype=dtype)
+    t0 = time.perf_counter()
+    solver.set_matrix(A, Options(remove_boundary=True))
+    setup_s = time.perf_counter() - t0
+    solver.set_rhs(generators.laplacian3D_set_rhs(M, M, M))
+    print(solver.info.table())
+    rep, bad = run_solve(solver, dev, golden, "picker")
+    rep["setup_s"] = setup_s
+    rep["setup_phases_s"] = {k: round(v, 3) for k, v in solver.info.phases.items()}
+    print(f"  setup {setup_s:.3f} s: {json.dumps(rep['setup_phases_s'])}")
+    return solver, rep, bad
+
+
+def forced_hierarchy(solver):
+    """The picker's hierarchy with every transfer structural, Pt in strip
+    and Pt^T in strip8, and the level-2 A in whichever of strip and strip8
+    the picker did not choose; the host levels are the solver's own."""
+    from saena_tpu_torch.amg.prolongation import tentative_prolongator
+    from saena_tpu_torch.ops.formats import pad_to, to_device
+    from saena_tpu_torch.ops.strip8_spmv import strip8_from_csr
+    from saena_tpu_torch.ops.strip_spmv import StripMatrix, strip_from_csr
+    from saena_tpu_torch.ops.transfers import SmoothedP, SmoothedR
+
+    H, info = solver.hierarchy, solver.info
+    dev, dt = H.device, H.dtype
+    levels = list(H.levels)
+    A2 = info.csr_levels[2]
+    other = strip8_from_csr if isinstance(levels[2].A, StripMatrix) else strip_from_csr
+    levels[2] = dataclasses.replace(levels[2], A=other(A2, dt, dev))
+    for l in range(len(levels) - 1):
+        agg, wq = info.structs[l]
+        n, n_c = info.sizes[l], info.sizes[l + 1]
+        Pt = tentative_prolongator(agg, n_c)
+        wq_dev = to_device(np.pad(wq, (0, pad_to(n) - n)), dt, dev)
+        A_l = levels[l].A
+        nnz = int(info.Ps[l].nnz)
+        P = SmoothedP(strip_from_csr(Pt, dt, dev), A_l, wq_dev, (n, n_c), nnz)
+        R = SmoothedR(strip8_from_csr(Pt.T.tocsr(), dt, dev), A_l, wq_dev,
+                      (n_c, n), nnz)
+        levels[l] = dataclasses.replace(levels[l], P=P, R=R)
+    return dataclasses.replace(H, levels=tuple(levels))
+
+
+def pick_estimates(info, H, dtype) -> list:
+    """Per level, the estimates (µs) the picker ranked: the level's A over
+    the gather formats, and the structural transfers against the direct
+    P/R (through the level's device A in ``H``)."""
+    from saena_tpu_torch.ops.formats import (
+        bsr_time_estimate, gather_time_estimate, gather_time_estimate_quick)
+    from saena_tpu_torch.ops.strip8_spmv import strip8_time_estimate
+    from saena_tpu_torch.ops.strip_spmv import strip_time_estimate
+    from saena_tpu_torch.ops.transfers import structural_estimate
+
+    us = lambda s: round(s * 1e6, 3)
+    out = []
+    for l, A in enumerate(info.csr_levels):
+        row = {"level": l, "format": info.formats[l]}
+        if info.formats[l] not in ("DiaMatrix", "DenseMatrix"):
+            row["A"] = {"strip": us(strip_time_estimate(A, dtype)),
+                        "strip8": us(strip8_time_estimate(A, dtype)),
+                        "bsr": us(bsr_time_estimate(A, dtype))}
+        if l < len(info.Ps) and info.structs[l] is not None:
+            P, R = info.Ps[l], info.Rs[l]
+            row["structural"] = us(structural_estimate(
+                info.structs[l][0], info.sizes[l + 1], H.levels[l].A, dtype))
+            row["direct_quick"] = us(gather_time_estimate_quick(P, dtype)
+                                     + gather_time_estimate_quick(R, dtype))
+            row["direct"] = us(gather_time_estimate(P, dtype)
+                               + gather_time_estimate(R, dtype))
+        out.append(row)
+    return out
+
+
 # ---------------------------------------------------------- phase 4: times --
 
 
 def time_level0(dev):
-    """Kernel / plain / cuSPARSE ms at the 48^3 level-0 shapes. Returns rows
-    of dicts."""
+    """DIA kernel / plain / cuSPARSE ms at the 48^3 level-0 shapes. Returns
+    rows of dicts."""
     import torch
 
     from saena_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_plain
@@ -290,11 +557,7 @@ def time_level0(dev):
                            dtype=dt, device=dev)
         dinv = torch.tensor(np.pad(1.0 / A.diagonal(), (0, n_pad - n)),
                             dtype=dt, device=dev)
-        crow = np.concatenate([A.indptr, np.full(n_pad - n, A.indptr[-1])])
-        Acsr = torch.sparse_csr_tensor(
-            torch.tensor(crow, dtype=torch.int64, device=dev),
-            torch.tensor(A.indices, dtype=torch.int64, device=dev),
-            torch.tensor(A.data, dtype=dt, device=dev), size=(n_pad, n_pad))
+        Acsr = csr_on_card(A, dt, dev, n_pad, n_pad)
         isz = D.data.element_size()
         nd = len(D.offsets)
         for vname in ("spmv", "cheb"):
@@ -307,9 +570,9 @@ def time_level0(dev):
             nvec = 2 + has_rhs + has_dinv
             nbytes = (nd * isz + nvec * isz) * n_pad
             flops = (2 * nd + 3 * has_rhs) * n_pad
-            b_bytes = nbytes / HBM_BPS * 1e3
-            b_ops = flops / PEAK_FLOPS[dname] * 1e3
-            r = {"dtype": dname, "variant": vname,
+            b_ms, b_by = bound(nbytes, flops, dname)
+            r = {"kernel": "dia_spmv", "shape": f"L0 {nd}x{n_pad}",
+                 "dtype": dname, "variant": vname,
                  "ms": graph_ms(lambda: dia_spmv(D.data, x, D.offsets,
                                                  offsets_dev=D.offsets_dev, **kw)),
                  "eager_ms": eager_ms(lambda: dia_spmv(
@@ -318,12 +581,156 @@ def time_level0(dev):
                                                              D.offsets, **kw)),
                  "library_ms": graph_ms(lambda: Acsr @ x)
                  if vname == "spmv" else None,
-                 "bound_ms": max(b_bytes, b_ops),
-                 "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+                 "bound_ms": b_ms, "bound_by": b_by,
                  "bytes": nbytes, "flops": flops}
             rows.append(r)
             print("  " + json.dumps(r))
     return rows
+
+
+def csr_on_card(A, dt, dev, n_rows_pad, n_cols_pad):
+    """A as a torch CSR tensor padded to (n_rows_pad, n_cols_pad)."""
+    import torch
+
+    crow = np.concatenate([A.indptr, np.full(n_rows_pad - A.shape[0], A.indptr[-1])])
+    return torch.sparse_csr_tensor(
+        torch.tensor(crow, dtype=torch.int64, device=dev),
+        torch.tensor(A.indices, dtype=torch.int64, device=dev),
+        torch.tensor(A.data, dtype=dt, device=dev), size=(n_rows_pad, n_cols_pad))
+
+
+def time_wide_dia(dev, A1):
+    """DIA kernel / plain / cuSPARSE ms at the level-1 wide-stencil shape."""
+    import torch
+
+    from saena_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_plain
+    from saena_tpu_torch.ops.formats import dia_from_csr
+
+    D = dia_from_csr(A1, torch.float32, dev)
+    n, n_pad = A1.shape[0], D.n_pad
+    x = torch.tensor(np.pad(np.random.default_rng(6).standard_normal(n),
+                            (0, n_pad - n)), dtype=torch.float32, device=dev)
+    Acsr = csr_on_card(A1, torch.float32, dev, n_pad, n_pad)
+    nd = len(D.offsets)
+    nbytes = (nd + 2) * 4 * n_pad
+    flops = 2 * nd * n_pad
+    b_ms, b_by = bound(nbytes, flops, "float32")
+    r = {"kernel": "dia_spmv", "shape": f"L1 {nd}x{n_pad}", "dtype": "float32",
+         "variant": "spmv",
+         "ms": graph_ms(lambda: dia_spmv(D.data, x, D.offsets,
+                                         offsets_dev=D.offsets_dev)),
+         "plain_ms": graph_ms(lambda: dia_spmv_plain(D.data, x, D.offsets),
+                              reps=10, replays=5),
+         "library_ms": graph_ms(lambda: Acsr @ x),
+         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
+         "fill": A1.nnz / (nd * n)}
+    print("  " + json.dumps(r))
+    return r
+
+
+def gather_bytes(kind, Mx) -> int:
+    """Bytes the kernel must move: the layout arrays it reads, x and y."""
+    csz = Mx.vals.element_size()
+    nb = Mx.idx.numel() + Mx.vals.numel() * csz + Mx.n_cols_pad * csz
+    if kind == "strip":
+        nb += 4 * (Mx.strip_of.numel() + Mx.rb_ptr.numel()) + Mx.n_rows_pad * csz
+    else:
+        nb += 4 * (Mx.strips.numel() + Mx.gather_idx.numel())
+        nb += Mx.gather_idx.shape[0] * (128 // Mx.perrow) * csz
+    return int(nb)
+
+
+def time_gather(dev, case, kind, M64, A_host, plain=True, library=True):
+    """Kernel (and plain, cuSPARSE) ms of one strip/strip8 layout in f32."""
+    import torch
+
+    from saena_tpu_torch.ops import strip8_spmv as s8
+    from saena_tpu_torch.ops import strip_spmv as s1
+
+    Mx = with_vals(M64, M64.vals.float())
+    kern = s1.strip_spmv if kind == "strip" else s8.strip8_spmv
+    pl_fn = s1.strip_spmv_plain if kind == "strip" else s8.strip8_spmv_plain
+    x = torch.zeros(Mx.n_cols_pad, dtype=torch.float32, device=dev)
+    x[: Mx.shape[1]] = torch.tensor(
+        np.random.default_rng(7).standard_normal(Mx.shape[1]), device=dev)
+    nnz = int(A_host.nnz) if A_host is not None else Mx.nnz
+    nbytes = gather_bytes(kind, Mx)
+    b_ms, b_by = bound(nbytes, 2 * nnz, "float32")
+    r = {"kernel": f"{kind}_spmv", "case": case, "dtype": "float32",
+         "perrow": Mx.perrow, "units": int(Mx.idx.shape[0]),
+         "ms": graph_ms(lambda: kern(Mx, x)),
+         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+         "flops": 2 * nnz, "fill": nnz / Mx.idx.numel()}
+    if kind == "strip":
+        r["krb"] = Mx.krb
+    else:
+        r["mode"] = Mx.mode
+    if plain:
+        r["eager_ms"] = eager_ms(lambda: kern(Mx, x))
+        r["plain_ms"] = graph_ms(lambda: pl_fn(Mx, x), reps=10, replays=5)
+    if library and A_host is not None:
+        n_rows = Mx.n_rows_pad if kind == "strip" else \
+            Mx.gather_idx.shape[0] * (128 // Mx.perrow)
+        Acsr = csr_on_card(A_host, torch.float32, dev, n_rows, Mx.n_cols_pad)
+        r["library_ms"] = graph_ms(lambda: Acsr @ x)
+    print("  " + json.dumps(r))
+    return r
+
+
+def tiny_operator():
+    """A 128 x 128 operator with one entry: one pair, one tile."""
+    import scipy.sparse as sp
+
+    return sp.csr_matrix((np.ones(1), (np.zeros(1, int), np.zeros(1, int))),
+                         shape=(128, 128))
+
+
+def fit_constants(dev, ops, rows) -> dict:
+    """The picker's H100 cost constants from this run's times (f32)."""
+    import torch
+
+    from saena_tpu_torch.ops.formats import bsr_from_csr, pad_to
+    from saena_tpu_torch.ops.strip8_spmv import _plan8, strip8_from_csr
+    from saena_tpu_torch.ops.strip_spmv import strip_from_csr
+
+    f32 = torch.float32
+    tiny = tiny_operator()
+    t_strip0 = time_gather(dev, "tiny", "strip",
+                           strip_from_csr(tiny, torch.float64, dev), tiny,
+                           plain=False, library=False)["ms"]
+    t_strip80 = time_gather(dev, "tiny", "strip8",
+                            strip8_from_csr(tiny, torch.float64, dev), tiny,
+                            plain=False, library=False)["ms"]
+    c = {"STRIP_LAUNCH_S": t_strip0 * 1e-3, "KERNEL_LAUNCH_S": t_strip80 * 1e-3}
+    by = {(r["kernel"], r["case"]): r for r in rows}
+    c["STRIP_NS_BY_PERROW"] = {
+        pr: (by[("strip_spmv", f"L2_A_strip_pr{pr}")]["ms"] * 1e-3
+             - c["STRIP_LAUNCH_S"]) / by[("strip_spmv", f"L2_A_strip_pr{pr}")]["units"] * 1e9
+        for pr in (1, 2, 4, 8, 16)}
+    # general mode at the perrow the planner picks for the level-2 A
+    pr8 = _plan8(ops["L2_A"])[1][7]
+    g = by[("strip8_spmv", f"L2_A_strip8_pr{pr8}")]
+    ns_g = (g["ms"] * 1e-3 - c["KERNEL_LAUNCH_S"]) / g["units"] * 1e9
+    # interval mode on a synthetic layout of about the same tile count
+    Q = 128 // pr8
+    n_rb = -(-ops["L2_A"].shape[0] // Q)
+    syn = synthetic_interval(dev, n_rb, max(2, -(-g["units"] // n_rb)),
+                             -(-ops["L2_A"].shape[1] // 128), pr8, 9)
+    ti = time_gather(dev, "interval_synth", "strip8", syn, None, plain=False,
+                     library=False)
+    ns_i = (ti["ms"] * 1e-3 - c["KERNEL_LAUNCH_S"]) / ti["units"] * 1e9
+    c["STRIP8_NS_PER_TILE"] = {"general": ns_g, "interval": ns_i}
+    # BSR: the read rate of a sum over the blocks, and the matvec against it
+    B = bsr_from_csr(ops["L2_A"], f32, dev)
+    nb = B.blocks.numel() * 4
+    xb = torch.randn(pad_to(ops["L2_A"].shape[1]), dtype=f32, device=dev)
+    t_sum = graph_ms(lambda: B.blocks.sum(), reps=20, replays=10)
+    t_bsr = graph_ms(lambda: B.matvec(xb), reps=20, replays=10)
+    c["BSR_STREAM_BPS"] = nb / (t_sum * 1e-3)
+    c["BSR_TIME_FACTOR"] = t_bsr * 1e-3 / (nb / c["BSR_STREAM_BPS"])
+    c["bsr_L2_A"] = {"bytes": nb, "sum_ms": t_sum, "matvec_ms": t_bsr,
+                     "W": int(B.bcols.shape[1])}
+    return c
 
 
 # ------------------------------------------------------------------- main --
@@ -337,12 +744,24 @@ def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "saena_tpu_torch")):
         return fail(f"the saena_tpu_torch package is not beside {__file__}")
     sys.path.insert(0, ROOT)
-    from saena_tpu_torch.ops import cuda_build, dia_spmv as dia_mod
+    from saena_tpu_torch.ops import cuda_build
+    from saena_tpu_torch.ops import dia_spmv as dia_mod
+    from saena_tpu_torch.ops import strip8_spmv as s8_mod
+    from saena_tpu_torch.ops import strip_spmv as s1_mod
+
+    counters = {"dia_spmv": dia_mod, "strip_spmv": s1_mod, "strip8_spmv": s8_mod}
+
+    def zero():
+        for mod in counters.values():
+            mod.launches = 0
+
+    def read():
+        return {k: mod.launches for k, mod in counters.items()}
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
-    # ---- 1. card and build
+    # ---- 1. card, build, host levels
     card = card_line()
     print(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
@@ -353,47 +772,99 @@ def main() -> int:
         spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill stores", log))
         print(f"    {name}: {len(regs)} kernel instantiations, at most "
               f"{max(regs, default=0)} registers, {spills} bytes spilled")
-
-    # ---- 2. kernel vs plain
-    print("[2] DIA kernel vs plain version")
-    checks, bad = check_kernels(dev)
-    if bad:
-        return fail(f"kernel disagrees with its plain version: {bad}")
-
-    # ---- 3. main path
     with open(os.path.join(ROOT, "tests", "goldens", "convergence.json")) as f:
         golden = json.load(f)[GOLDEN]
-    dia_mod.launches = 0
-    print(f"[3] main path f64, {M}^3 (golden {GOLDEN})")
-    rep64, bad = solve_main_path(dev, torch.float64, golden)
+    t0 = time.perf_counter()
+    info = host_levels()
+    if info.sizes != golden["levels"]:
+        return fail(f"host levels {info.sizes} != golden {golden['levels']}")
+    ops = main_path_operators(info)
+    print(f"[1] host levels {info.sizes} in {time.perf_counter() - t0:.1f} s; "
+          + ", ".join(f"{k} {v.shape[0]}x{v.shape[1]} nnz {v.nnz}"
+                      for k, v in ops.items()))
+
+    # ---- 2. kernels vs plain
+    print("[2] DIA kernel vs plain version")
+    checks, bad = check_kernels(dev, ops)
+    if bad:
+        return fail(f"DIA kernel disagrees with its plain version: {bad}")
+    print("[2] strip / strip8 kernels vs plain versions")
+    cases = gather_cases(dev, ops)
+    gchecks, bad = check_gather(dev, cases)
+    if bad:
+        return fail(f"gather kernel disagrees with its plain version: {bad}")
+
+    # ---- 3. main path
+    print(f"[3a] main path f64, {M}^3, the card's picks (golden {GOLDEN})")
+    zero()
+    solver64, rep64, bad = solve_main_path(dev, torch.float64, golden)
+    launches_a64 = read()
     if bad:
         return fail(f"f64 main path: {bad}")
-    print(f"[3] main path f32, {M}^3")
-    rep32, bad = solve_main_path(dev, torch.float32, None)
+    if solver64.info.formats[1] != "DiaMatrix":
+        return fail(f"level 1 is {solver64.info.formats[1]}, not wide DIA")
+    print(f"[3a] main path f32, {M}^3")
+    zero()
+    solver32, rep32, bad = solve_main_path(dev, torch.float32, None)
+    launches_a32 = read()
     if bad:
         return fail(f"f32 main path: {bad}")
-    launches = {"dia_spmv": dia_mod.launches}
+    print(f"[3a] launches: f64 {launches_a64}, f32 {launches_a32}")
+    est = pick_estimates(solver32.info, solver32.hierarchy, torch.float32)
+    print("[3a] picker estimates (f32, µs): " + json.dumps(est))
+    print(f"[3b] forced path f64, {M}^3: Pt strip, Pt^T strip8, level-2 A the other")
+    solver64.hierarchy = forced_hierarchy(solver64)
+    zero()
+    rep_b, bad = run_solve(solver64, dev, golden, "forced")
+    launches_b = read()
+    if bad:
+        return fail(f"forced main path: {bad}")
+    print(f"[3b] launches: {launches_b}")
+    launches = {k: launches_a64[k] + launches_a32[k] + launches_b[k]
+                for k in counters}
     print(f"[3] launches on the main path: {launches}")
     if min(launches.values()) <= 0:
         return fail(f"a kernel never launched on the main path: {launches}")
 
     # ---- 4. times
-    print("[4] level-0 times (ms per call; bound = max(bytes/HBM, ops/peak))")
+    print("[4] times (ms per call; bound = max(bytes/HBM, ops/peak))")
     times = time_level0(dev)
+    wide = time_wide_dia(dev, ops["L1_A"])
+    grows = []
+    for case, (kind, M64, A_host) in cases.items():
+        if case == "interval_edge":
+            continue
+        main_shape = case in ("L0_Pt", "L0_PtT")
+        grows.append(time_gather(dev, case, kind, M64, A_host, plain=True,
+                                 library=main_shape or case.endswith(
+                                     ("pr1", "pr2", "pr4"))))
+    consts = fit_constants(dev, ops, grows)
+    print("[4] fitted cost constants: " + json.dumps(consts))
+    print(f"[4] total {time.perf_counter() - t_start:.1f} s")
+
     head = next(r for r in times if r["dtype"] == "float32" and r["variant"] == "spmv")
     head_err = max(e for case, v, d, _, e in checks
                    if case == f"poisson{M}" and v == "spmv" and d == "float32")
-    print(f"[4] total {time.perf_counter() - t_start:.1f} s")
+    gerr = {c: e for c, d, _, e in gchecks if d == "float32"}
+    grow = {r["case"]: r for r in grows}
+
+    def entry(name, source, replaces, r, err):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"]}
 
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "dia_spmv", "route": "cuda",
-        "source": "saena_tpu_torch/csrc/dia_spmv.cu",
-        "replaces": "saena_tpu/ops/pallas_dia_spmv.py:148",
-        "launches": launches["dia_spmv"], "max_abs_err": head_err,
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"]}]}))
+    print(json.dumps({"kernels": [
+        entry("dia_spmv", "saena_tpu_torch/csrc/dia_spmv.cu",
+              "saena_tpu/ops/pallas_dia_spmv.py:148", head, head_err),
+        entry("strip_spmv", "saena_tpu_torch/csrc/strip_spmv.cu",
+              "saena_tpu/ops/pallas_strip_spmv.py:116", grow["L0_Pt"],
+              gerr["L0_Pt"]),
+        entry("strip8_spmv", "saena_tpu_torch/csrc/strip8_spmv.cu",
+              "saena_tpu/ops/pallas_strip8_spmv.py:96", grow["L0_PtT"],
+              gerr["L0_PtT"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,15 +2,18 @@
 CUDA.
 
 The same host setup as saena_tpu (numpy/scipy), device levels as torch
-tensors, and the pCG + V-cycle solve in PyTorch, with the DIA stencil SpMV
-and its fused smoother update as a hand-written CUDA kernel for Hopper
-(csrc/dia_spmv.cu). Entry points run on the CUDA card unless the caller
-passes ``device="cpu"``.
+tensors, and the pCG + V-cycle solve in PyTorch, with three hand-written
+CUDA kernels for Hopper: the DIA stencil SpMV and its fused smoother update
+(csrc/dia_spmv.cu), and the strip and strip8 gather SpMVs
+(csrc/strip_spmv.cu, csrc/strip8_spmv.cu) that carry the mid-level
+operators and the structural transfers on the card. Entry points run on
+the CUDA card unless the caller passes ``device="cpu"``.
 
   core/      host COO assembly and boundary removal
   amg/       hierarchy setup and solve: strength, aggregation, RAP, eig,
              smoothers, V-cycle, pCG
-  ops/       device formats (DIA, ELL, dense) and the DIA kernel's wrapper
+  ops/       device formats (DIA, ELL, dense, BSR, strip, strip8), the
+             format picker, structural transfers and the kernels' wrappers
   csrc/      CUDA sources, built with nvcc at first use
   api.py     Matrix / AMG
 """

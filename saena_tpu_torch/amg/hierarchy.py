@@ -9,9 +9,16 @@ the V-cycle and pCG consume (ref saena_object::setup, saena_object.cpp:
 
 Setup is serial, as saena_tpu's shard-parallel setup is documented to be
 bitwise-identical to its serial one; only each level's Lanczos eig estimate
-runs on a worker thread behind the coarsening of deeper levels. Transfer
-operators are always the direct P/R in ELL (the JAX package's CPU branch);
-``Options.structural_transfers`` is not read.
+runs on a worker thread behind the coarsening of deeper levels.
+
+Formats follow the JAX package's two branches. On the CPU: DIA, ELL or
+dense A, direct P/R in ELL. On the card: wide-stencil DIA and the gather
+picker (strip, strip8, BSR) for A, and structural transfers
+(ops/transfers.py: P = (I - wq A) P_t, R = P_t^T (I - A wq) through the
+level's own A) wherever their estimate beats the direct P/R, which
+otherwise take the gather picker too. ``Options(structural_transfers=
+"force")`` builds the structural transfers on any device whenever the
+level's A is symmetric; ``structural_transfers=False`` never does.
 """
 from __future__ import annotations
 
@@ -28,17 +35,32 @@ from saena_tpu_torch.config import Options
 from saena_tpu_torch.runtime import PhaseTimer, resolve_device, resolve_dtype
 from saena_tpu_torch.ops.formats import (
     DeviceMatrix,
+    accelerator_branch,
     bsr_block_width,
     bsr_bytes_estimate,
     dense_from_csr,
     device_matrix_from_csr,
     ell_from_csr,
+    gather_time_estimate,
+    gather_time_estimate_quick,
     pad_to,
+    pick_gather_format,
     rcm_permutation,
+    set_bsr_geometry,
     to_device,
 )
+from saena_tpu_torch.ops.transfers import (
+    build_structural,
+    is_symmetric,
+    mark_symmetric,
+    structural_estimate,
+)
 from saena_tpu_torch.amg.strength import find_aggregation, find_aggregation_double
-from saena_tpu_torch.amg.prolongation import smoothed_prolongator, restriction
+from saena_tpu_torch.amg.prolongation import (
+    restriction,
+    smoothed_prolongator,
+    smoothing_diag,
+)
 from saena_tpu_torch.amg.galerkin import (
     galerkin_product,
     filter_lump,
@@ -182,6 +204,9 @@ class SetupInfo:
     csr_levels: list = dataclasses.field(default_factory=list, repr=False)
     Ps: list = dataclasses.field(default_factory=list, repr=False)
     Rs: list = dataclasses.field(default_factory=list, repr=False)
+    # per coarsening step, (agg, wq) when the structural transfers apply
+    # (symmetric A), else None
+    structs: list = dataclasses.field(default_factory=list, repr=False)
     # per-phase setup seconds (phases overlap across threads, so the sum
     # may exceed the "wall" entry) and, apart from them, the bytes uploaded
     phases: dict = dataclasses.field(default_factory=dict, repr=False)
@@ -206,8 +231,9 @@ def dtype_name(dtype: torch.dtype) -> str:
 
 def coarsen_csr(A: sp.csr_matrix, lvl: int, opts: Options, timer: PhaseTimer):
     """One h-coarsening step: aggregation -> P -> R -> filtered Galerkin Ac.
-    Returns (P, R, Ac, last_flag, theta_used) or None when coarsening is
-    not possible (ref coarsen(), saena_object.cpp:409-538)."""
+    Returns (P, R, Ac, last_flag, theta_used, struct) or None when
+    coarsening is not possible (ref coarsen(), saena_object.cpp:409-538);
+    ``struct`` is (agg, wq) when the structural transfers apply."""
     n = A.shape[0]
     with timer.phase("aggregation"):
         if opts.aggregation == "double":
@@ -231,13 +257,15 @@ def coarsen_csr(A: sp.csr_matrix, lvl: int, opts: Options, timer: PhaseTimer):
     with timer.phase("rap"):
         Ac = galerkin_product(R, A, P)
     with timer.phase("coarsen_tail"):
-        P, R, Ac = coarsen_tail(P, R, Ac, lvl, opts)
-    return P, R, Ac, last, theta
+        P, R, Ac, agg, struct = coarsen_tail(A, P, R, Ac, agg, lvl, opts)
+    return P, R, Ac, last, theta, struct
 
 
-def coarsen_tail(P, R, Ac, lvl: int, opts: Options):
-    """Post-Galerkin finishing: filter/lumping, optional sparsification and
-    the RCM reordering (ref saena_object_setup2.cpp:161-341)."""
+def coarsen_tail(A, P, R, Ac, agg, lvl: int, opts: Options):
+    """Post-Galerkin finishing: filter/lumping, optional sparsification,
+    the RCM reordering (ref saena_object_setup2.cpp:161-341) and the
+    structural-transfer eligibility. Returns (P, R, Ac, agg, struct): agg
+    follows the reordering, struct is (agg, wq) when A is symmetric."""
     thre = filter_threshold(lvl + 1, opts.filter_thre, opts.filter_max,
                             opts.filter_start, opts.filter_rate)
     Ac = filter_lump(Ac, thre)
@@ -257,9 +285,20 @@ def coarsen_tail(P, R, Ac, lvl: int, opts: Options):
         if n_br * W_p * 1024 * 4 < bsr_bytes_estimate(Ac):
             Ac = Ac[perm][:, perm].tocsr()
             Ac.sort_indices()
+            set_bsr_geometry(Ac, n_br, W_p)
             P = P[:, perm].tocsr()
             R = R[perm].tocsr()
-    return P, R, Ac
+            agg = iperm[agg]
+    # the structural transfers need R = P^T to decompose through a
+    # symmetric A; sparsified hierarchies break it
+    struct = None
+    if opts.structural_transfers and opts.sample_sz_percent >= 1.0 \
+            and is_symmetric(A):
+        struct = (agg, smoothing_diag(A, opts.Pomega, opts.PSmoother))
+        # Galerkin with R = P^T keeps symmetry to roundoff: pre-seed the
+        # flag so the next level skips the transpose compare
+        mark_symmetric(Ac)
+    return P, R, Ac, agg, struct
 
 
 def _check_supported(opts: Options) -> None:
@@ -308,7 +347,7 @@ def setup(
         inv_sq_diag = isd
 
     csr_levels = [A]
-    Ps, Rs, thetas, kinds = [], [], [], []
+    Ps, Rs, thetas, kinds, structs = [], [], [], [], []
     eig_futs: dict = {}
 
     def _timed_eig(Acur):
@@ -328,12 +367,13 @@ def setup(
             out = coarsen_csr(Acur, lvl, opts, timer)
             if out is None:
                 break
-            P, R, Ac, last, theta = out
+            P, R, Ac, last, theta, struct = out
             Ps.append(P)
             Rs.append(R)
             csr_levels.append(Ac)
             thetas.append(theta)
             kinds.append("h")
+            structs.append(struct)
             if opts.smoother == "chebyshev" and not (lvl == 0 and opts.eig > 0):
                 eig_futs[lvl] = exe.submit(_timed_eig, Acur)
             if last:
@@ -341,7 +381,7 @@ def setup(
 
         hierarchy, info = devicify(
             csr_levels, Ps, Rs, opts, dtype=dtype, device=device,
-            use_dense=use_dense, inv_sq_diag=inv_sq_diag,
+            use_dense=use_dense, inv_sq_diag=inv_sq_diag, structs=structs,
             eig_futures=eig_futs, timer=timer)
     finally:
         exe.shutdown(wait=True, cancel_futures=True)
@@ -362,24 +402,29 @@ def devicify(
     device=None,
     use_dense: bool = False,
     inv_sq_diag=None,
+    structs=None,
     eig_futures=None,
     timer: Optional[PhaseTimer] = None,
 ) -> tuple[Hierarchy, SetupInfo]:
-    """Convert a host CSR hierarchy into device levels. ``eig_futures``:
-    per-level futures of eig_max_invdiag_host started by setup(); levels
-    without one compute it inline."""
+    """Convert a host CSR hierarchy into device levels. ``structs``: per
+    coarsening step (agg, wq) or None, from setup(); without them every
+    level gets direct P/R. ``eig_futures``: per-level futures of
+    eig_max_invdiag_host started by setup(); levels without one compute it
+    inline."""
     device = resolve_device(device)
     dtype = resolve_dtype(dtype)
     timer = timer or PhaseTimer()
     n_lv = len(csr_levels)
+    structs = list(structs) if structs else [None] * len(Ps)
     info = SetupInfo([], [], [], [], [], [None] * n_lv, ["-"] * n_lv,
-                     csr_levels=list(csr_levels), Ps=list(Ps), Rs=list(Rs))
+                     csr_levels=list(csr_levels), Ps=list(Ps), Rs=list(Rs),
+                     structs=structs)
 
     levels = []
     for l in range(n_lv):
         level, (n, nnz, dens, fmt, dts) = _level_task(
-            l, l == n_lv - 1, csr_levels, Ps, Rs, opts, dtype, device,
-            use_dense, eig_futures, timer)
+            l, l == n_lv - 1, csr_levels, Ps, Rs, structs, opts, dtype,
+            device, use_dense, eig_futures, timer)
         levels.append(level)
         info.sizes.append(n)
         info.nnzs.append(nnz)
@@ -433,8 +478,33 @@ def devicify(
     return hierarchy, info
 
 
-def _level_task(l, is_coarsest, csr_levels, Ps, Rs, opts, dtype, device,
-                use_dense, eig_futures, timer):
+def _transfer_from_csr(M: sp.csr_matrix, dtype, device, timer):
+    """Direct P/R: the fastest gather format by estimate on the card, ELL
+    on the CPU."""
+    if accelerator_branch(device) and M.nnz > 0:
+        builder = pick_gather_format(M, dtype)
+        if builder is not None:
+            return builder(M, dtype, device, timer=timer)
+    return ell_from_csr(M, dtype, device, width_quantile=0.98, timer=timer)
+
+
+def _structural_wins(l, agg, n_c, Adev, Ps, Rs, dt, dt_next) -> bool:
+    """Whether the structural transfers' estimate beats the direct P/R's.
+    The quick direct estimate decides first, with a 3x margin, so strip8's
+    full-pattern plan of P and R runs only on close calls."""
+    est_s = structural_estimate(agg, n_c, Adev, dt)
+    if not np.isfinite(est_s):
+        return False
+    est_dq = (gather_time_estimate_quick(Ps[l], dt_next)
+              + gather_time_estimate_quick(Rs[l], dt_next))
+    if est_s < est_dq / 3.0:
+        return True
+    return est_s < (gather_time_estimate(Ps[l], dt_next)
+                    + gather_time_estimate(Rs[l], dt_next))
+
+
+def _level_task(l, is_coarsest, csr_levels, Ps, Rs, structs, opts, dtype,
+                device, use_dense, eig_futures, timer):
     """Build one level's device objects (A format, inv_diag, eig, P/R)."""
     low_dtype = getattr(torch, opts.low_dtype)
     Acsr = csr_levels[l]
@@ -472,8 +542,18 @@ def _level_task(l, is_coarsest, csr_levels, Ps, Rs, opts, dtype, device,
         t0 = time.perf_counter()
         dt_next = low_dtype if (opts.float_storage
                                 and (l + 1) >= opts.float_level) else dtype
-        P_dev = ell_from_csr(Ps[l], dt_next, device, width_quantile=0.98, timer=timer)
-        R_dev = ell_from_csr(Rs[l], dt_next, device, width_quantile=0.98, timer=timer)
+        struct = structs[l]
+        force = opts.structural_transfers == "force"
+        if struct is not None and (force or accelerator_branch(device)):
+            agg, wq = struct
+            n_c = csr_levels[l + 1].shape[0]
+            if force or _structural_wins(l, agg, n_c, Adev, Ps, Rs, dt, dt_next):
+                P_dev, R_dev = build_structural(
+                    agg, n_c, wq, Adev, int(Ps[l].nnz), dt, dt_next, device,
+                    timer=timer)
+        if P_dev is None:
+            P_dev = _transfer_from_csr(Ps[l], dt_next, device, timer)
+            R_dev = _transfer_from_csr(Rs[l], dt_next, device, timer)
         timer.add("devicify_PR", time.perf_counter() - t0)
 
     # inv_diag carries the VECTOR dtype: smoother arithmetic stays at full

@@ -3,10 +3,10 @@
 One dataclass carries every option of the reference's configuration surface
 (`saena::options`, saena.hpp:127-193, plus the public members of
 saena_object.h). Field names and defaults are those of `saena_tpu.config`;
-the JSON/XML loaders are not ported yet. Fields that select TPU-only
-machinery (`structural_transfers`, `rap="device"`, `setup_shards`, the
-sharded-path policy) are accepted for parity and documented where the port
-reads them.
+the JSON/XML loaders are not ported yet. Fields that select machinery the
+port does not have yet (`rap="device"`, `setup_shards`, the sharded-path
+policy) are accepted for parity and documented where the port reads them;
+`structural_transfers` is read by amg/hierarchy.py.
 """
 from __future__ import annotations
 

@@ -14,7 +14,16 @@ operators, diagonals, eigenvalue estimates and coarse solves.
 Level ``l`` keeps its arrays under ``L{l}.inv_diag`` and ``L{l}.{A,P,R}.*``:
 ``data`` for DiaMatrix (``(ndiag, n_pad)``) and DenseMatrix
 (``(n_pad, m_pad)``); ``cols``, ``vals``, ``spill_rows``, ``spill_cols``
-and ``spill_vals`` for EllMatrix. The coarse solve is ``coarse.inv`` and
+and ``spill_vals`` for EllMatrix; ``blocks`` and ``bcols`` for BsrMatrix;
+``idx`` (int8), ``vals``, ``strip_of``, ``rb_local`` and ``sb_of`` for
+StripMatrix, whose spec also names ``perrow``, ``krb``, ``n_rows_pad``,
+``n_cols_pad``, ``n_out`` and ``pick_pairs``; ``idx`` (int8), ``vals``,
+``strips`` and ``gather_idx`` for Strip8Matrix, whose spec names
+``perrow``, ``mode`` ("general" or "interval"), ``n_cols_pad`` and
+``n_out``. A structural transfer is ``{"format": "SmoothedP", "Pt": spec,
+"A": "level", ...}`` (``SmoothedR`` with ``"PtT"``) with arrays ``wq`` and
+``Pt.*`` (``PtT.*``) under its own key; its A is the level's A, stored
+once. The coarse solve is ``coarse.inv`` and
 ``coarse.adense`` (kind "inv"), or ``coarse.dense``, the unit-diagonal-padded
 coarsest operator, which is factored here (kind "lu"). ``inv_sq_diag`` is
 present when ``scaled``.
@@ -25,24 +34,54 @@ import numpy as np
 import torch
 
 from saena_tpu_torch.amg.hierarchy import CoarseLU, Hierarchy, Level
-from saena_tpu_torch.ops.formats import DenseMatrix, DiaMatrix, EllMatrix
+from saena_tpu_torch.ops.formats import (
+    BsrMatrix,
+    DenseMatrix,
+    DiaMatrix,
+    EllMatrix,
+    index_to_device,
+    int8_to_device,
+)
+from saena_tpu_torch.ops.strip8_spmv import Strip8Matrix
+from saena_tpu_torch.ops.strip_spmv import StripMatrix
+from saena_tpu_torch.ops.transfers import SmoothedP, SmoothedR
 from saena_tpu_torch.runtime import resolve_device, resolve_dtype
 
+_STRIP_META = ("perrow", "krb", "n_rows_pad", "n_cols_pad", "n_out", "pick_pairs")
+_STRIP8_META = ("perrow", "mode", "n_cols_pad", "n_out")
 
-def _matrix(arrays, key, spec, dtype, device):
+
+def _matrix(arrays, key, spec, dtype, device, level_A=None):
     val = lambda name: torch.from_numpy(
         np.ascontiguousarray(arrays[f"{key}.{name}"])).to(device, dtype)
-    idx = lambda name: torch.from_numpy(np.ascontiguousarray(
-        arrays[f"{key}.{name}"], dtype=np.int32)).to(device)
+    idx = lambda name: index_to_device(arrays[f"{key}.{name}"], device)
+    lanes = lambda: int8_to_device(arrays[f"{key}.idx"], device)
     fmt = spec["format"]
+    common = dict(shape=spec["shape"], nnz=spec["nnz"])
     if fmt == "DiaMatrix":
-        return DiaMatrix(val("data"), spec["offsets"], spec["shape"], spec["nnz"])
+        return DiaMatrix(val("data"), spec["offsets"], **common)
     if fmt == "EllMatrix":
         return EllMatrix(idx("cols"), val("vals"), idx("spill_rows"),
-                         idx("spill_cols"), val("spill_vals"), spec["shape"],
-                         spec["nnz"])
+                         idx("spill_cols"), val("spill_vals"), **common)
     if fmt == "DenseMatrix":
-        return DenseMatrix(val("data"), spec["shape"], spec["nnz"])
+        return DenseMatrix(val("data"), **common)
+    if fmt == "BsrMatrix":
+        return BsrMatrix(val("blocks"), idx("bcols"), **common)
+    if fmt == "StripMatrix":
+        return StripMatrix(lanes(), val("vals"), idx("strip_of"),
+                           idx("rb_local"), idx("sb_of"), **common,
+                           **{k: spec[k] for k in _STRIP_META})
+    if fmt == "Strip8Matrix":
+        return Strip8Matrix(lanes(), val("vals"), idx("strips"),
+                            idx("gather_idx"), **common,
+                            **{k: spec[k] for k in _STRIP8_META})
+    if fmt in ("SmoothedP", "SmoothedR"):
+        if spec.get("A") != "level" or level_A is None:
+            raise ValueError(f"{key}: a structural transfer's A must be the level's")
+        inner = "Pt" if fmt == "SmoothedP" else "PtT"
+        cls = SmoothedP if fmt == "SmoothedP" else SmoothedR
+        return cls(_matrix(arrays, f"{key}.{inner}", spec[inner], dtype, device),
+                   level_A, val("wq"), **common)
     raise ValueError(f"format {fmt!r} is not ported")
 
 
@@ -55,9 +94,10 @@ def load_hierarchy(arrays: dict, meta: dict, dtype=None, device=None) -> Hierarc
         np.ascontiguousarray(arrays[name])).to(device, dtype)
     levels = []
     for l, spec in enumerate(meta["levels"]):
-        mats = {k: None if spec.get(k) is None else
-                _matrix(arrays, f"L{l}.{k}", spec[k], dtype, device)
-                for k in ("A", "P", "R")}
+        mats = {"A": _matrix(arrays, f"L{l}.A", spec["A"], dtype, device)}
+        for k in ("P", "R"):
+            mats[k] = None if spec.get(k) is None else _matrix(
+                arrays, f"L{l}.{k}", spec[k], dtype, device, mats["A"])
         levels.append(Level(A=mats["A"], inv_diag=vec(f"L{l}.inv_diag"),
                             P=mats["P"], R=mats["R"], n=int(spec["n"]),
                             lvl=int(spec["lvl"]), eig_max=spec.get("eig_max")))

@@ -9,6 +9,10 @@ packages can be compared array for array:
   its matvec and fused smoother update are the DIA kernel (ops/dia_spmv.py).
 - ``DenseMatrix``: coarse levels switch to dense (ref
   saena_object_setup2.cpp:327-339), applied with ``torch.matmul``.
+- ``BsrMatrix``: (8, 128)-block rows in block-ELL layout, applied as a
+  batched matrix product (plain PyTorch, as the JAX package left it to XLA).
+- ``StripMatrix`` and ``Strip8Matrix`` (ops/strip_spmv.py,
+  ops/strip8_spmv.py): the gather formats of the strip and strip8 kernels.
 
 Vector convention: every device vector of a space of logical size n is
 padded to ``pad_to(n)`` (a multiple of 128) with zeros, and every operator
@@ -17,6 +21,12 @@ preserves the zero padding, so the solve path never slices.
 Each format holds tensors on one explicit device. ELL is plain PyTorch (an
 ``index_select`` gather and a sum); its spill uses ``index_add_``, which on
 the card adds with atomics in no fixed order.
+
+``device_matrix_from_csr`` takes the JAX package's CPU branch for a CPU
+target and its accelerator branch for a CUDA target (or when the caller
+passes ``prefer_bsr=True``): wide-stencil DIA, then the gather picker,
+which ranks strip, strip8 and BSR by estimated matvec time. Cost constants
+are H100 measurements from ``chip_smoke.py`` phase 4; see PERF.md.
 """
 from __future__ import annotations
 
@@ -32,6 +42,12 @@ from saena_tpu_torch.ops.dia_spmv import dia_spmv
 PAD = 128  # alignment of every device vector and row dimension
 
 _NP_FLOAT = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def accelerator_branch(device) -> bool:
+    """Whether setup takes the JAX package's accelerator branch (wide DIA,
+    the gather picker, structural transfers) for ``device``: on the card."""
+    return torch.device(device).type == "cuda"
 
 
 def pad_to(n: int, m: int = PAD) -> int:
@@ -55,6 +71,11 @@ def to_device(arr, dtype: torch.dtype, device, timer=None) -> torch.Tensor:
 
 def index_to_device(arr, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.int32)).to(device)
+
+
+def int8_to_device(arr, device) -> torch.Tensor:
+    """Lane indices within a 128-column strip (0..127) as int8."""
+    return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.int8)).to(device)
 
 
 class EllMatrix:
@@ -147,7 +168,36 @@ class DenseMatrix:
         return torch.matmul(self.data, x.to(self.dtype))
 
 
-DeviceMatrix = EllMatrix | DiaMatrix | DenseMatrix
+class BsrMatrix:
+    """Block-sparse rows: (8, 128) dense blocks, block-ELL across block rows.
+    blocks (n_br, W, 8, 128), bcols (n_br, W) int32, the 128-column chunk
+    of x each block reads; padding blocks are zero and read chunk 0."""
+
+    def __init__(self, blocks, bcols, shape, nnz):
+        self.blocks, self.bcols = blocks, bcols
+        self.shape, self.nnz = tuple(shape), int(nnz)
+
+    @property
+    def dtype(self):
+        return self.blocks.dtype
+
+    @property
+    def n_pad(self) -> int:
+        return self.blocks.shape[0] * 8
+
+    @property
+    def device(self) -> torch.device:
+        return self.blocks.device
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """One batched (8, 128) @ (128,) product per block, summed over the
+        block row's W blocks."""
+        g = x.to(self.dtype).view(-1, 128)[self.bcols.long()]  # (n_br, W, 128)
+        y = torch.matmul(self.blocks, g.unsqueeze(-1))           # (n_br, W, 8, 1)
+        return y.sum(dim=1).reshape(-1)
+
+
+DeviceMatrix = EllMatrix | DiaMatrix | DenseMatrix | BsrMatrix
 
 
 # ---------------------------------------------------------------------------
@@ -253,6 +303,47 @@ def dense_from_csr(A: sp.spmatrix, dtype, device, unit_diag_pad: bool = False,
                        nnz=int(A.nnz))
 
 
+def bsr_from_csr(A: sp.spmatrix, dtype, device, timer=None) -> BsrMatrix:
+    """Convert CSR to (8, 128)-block BSR (block-ELL across block rows)."""
+    A = A.tocsr()
+    n, m = A.shape
+    n_br = pad_to(n) // 8
+    n_bc = pad_to(m) // 128
+    coo = A.tocoo()
+    key = (coo.row // 8).astype(np.int64) * n_bc + coo.col // 128
+    uniq, inv = np.unique(key, return_inverse=True)
+    u_br = (uniq // n_bc).astype(np.int64)
+    u_bc = (uniq % n_bc).astype(np.int64)
+    counts = np.bincount(u_br, minlength=n_br)
+    W = max(1, int(counts.max())) if counts.size else 1
+    # slot of each unique block within its block row (uniq is sorted)
+    slot = np.arange(uniq.size) - (np.cumsum(counts) - counts)[u_br]
+    blocks = np.zeros((n_br, W, 8, 128), dtype=_NP_FLOAT.get(dtype, np.float64))
+    bcols = np.zeros((n_br, W), dtype=np.int32)
+    bcols[u_br, slot] = u_bc
+    blocks[u_br[inv], slot[inv], coo.row % 8, coo.col % 128] = coo.data
+    return BsrMatrix(blocks=to_device(blocks, dtype, device, timer),
+                     bcols=index_to_device(bcols, device), shape=(n, m),
+                     nnz=int(A.nnz))
+
+
+# H100 cost constants, measured by chip_smoke.py phase 4 on NVIDIA H100 80GB
+# HBM3 at a 700.00 W power limit (PERF.md, "Cost constants").
+# BSR_STREAM_BPS: the read rate of one sum over the 48^3 level-2 A's f32 BSR
+# blocks (234 MB); BSR_TIME_FACTOR: that operator's BSR matvec time over its
+# block bytes at that rate; KERNEL_LAUNCH_S: the time of the smallest strip8
+# layout (one tile), the launch floor of a gather kernel.
+BSR_STREAM_BPS = 2.846e12
+BSR_TIME_FACTOR = 2.22
+KERNEL_LAUNCH_S = 2.01e-6
+
+
+def bsr_time_estimate(A: sp.spmatrix, dtype=torch.float32) -> float:
+    """Estimated matvec seconds: the BSR product streams its blocks."""
+    return KERNEL_LAUNCH_S + \
+        bsr_bytes_estimate(A, dtype) / BSR_STREAM_BPS * BSR_TIME_FACTOR
+
+
 def device_matrix_from_csr(
     A: sp.spmatrix,
     dtype,
@@ -262,25 +353,93 @@ def device_matrix_from_csr(
     switch_to_dense: bool = True,
     max_dia_diags: int = 40,
     dia_fill_thre: float = 0.3,
+    prefer_bsr: Optional[bool] = None,
     timer=None,
-) -> DeviceMatrix:
-    """Pick the device format of a matrix, with the decisions of the JAX
-    package's CPU branch on every device: the reference's dense switch
+):
+    """Pick the device format of a matrix: the reference's dense switch
     (density > dense_thre and size <= dense_sz_thre,
     saena_object_setup2.cpp:327-339), then DIA at <= max_dia_diags
-    diagonals with fill >= dia_fill_thre, else ELL cut at the 0.98 row-nnz
-    quantile."""
+    diagonals with fill >= dia_fill_thre. ``prefer_bsr`` (None: follow the
+    device, True on the card) selects the accelerator branch next:
+    wide-stencil DIA up to 256 diagonals at the same fill, then the fastest
+    gather format by estimated time (strip, strip8, BSR, within the byte
+    caps GATHER_MAX_BYTES and GATHER_MAX_BYTES_PER_NNZ). Everything else is
+    ELL cut at the 0.98 row-nnz quantile."""
     A = A.tocsr()
+    device = torch.device(device)
     n, m = A.shape
     density = A.nnz / max(1, n * m)
+    if prefer_bsr is None:
+        prefer_bsr = accelerator_branch(device)
     if switch_to_dense and density > dense_thre and max(n, m) <= dense_sz_thre:
         return dense_from_csr(A, dtype, device, timer=timer)
     if n == m and A.nnz > 0:
         offs = dia_offsets_of(A)
         fill = A.nnz / (offs.size * n)
-        if offs.size <= max_dia_diags and fill >= dia_fill_thre:
+        if fill >= dia_fill_thre and (
+                offs.size <= max_dia_diags or (prefer_bsr and offs.size <= 256)):
             return dia_from_csr(A, dtype, device, timer=timer)
+    if prefer_bsr and A.nnz > 0:
+        builder = pick_gather_format(A, dtype)
+        if builder is not None:
+            return builder(A, dtype, device, timer=timer)
     return ell_from_csr(A, dtype, device, width_quantile=0.98, timer=timer)
+
+
+# ---------------------------------------------------------------------------
+# gather-format picker (accelerator branch)
+# ---------------------------------------------------------------------------
+
+
+# device-footprint caps of a gather format: in all, and per nonzero
+GATHER_MAX_BYTES = 768 * 1024 * 1024
+GATHER_MAX_BYTES_PER_NNZ = 1024
+
+
+def gather_time_estimate(A: sp.spmatrix, dtype=torch.float32) -> float:
+    """Least estimated matvec seconds over the gather formats that fit the
+    byte caps (strip, strip8, BSR); inf if none does."""
+    return _pick_gather(A, dtype)[0]
+
+
+def gather_time_estimate_quick(A: sp.spmatrix, dtype=torch.float32) -> float:
+    """A cheap estimate from the sampled strip pick and the BSR geometry,
+    without strip8's full-pattern plan; callers use it to decide whether
+    the exact estimate is worth computing."""
+    from saena_tpu_torch.ops.strip_spmv import strip_time_estimate
+
+    t = bsr_time_estimate(A, dtype)
+    if A.nnz >= 4096:
+        t = min(t, strip_time_estimate(A, dtype))
+    return t
+
+
+def pick_gather_format(A: sp.spmatrix, dtype=torch.float32):
+    """The builder (fn(A, dtype, device, timer=None)) of the gather format
+    with the least estimated matvec time, or None when none fits the caps."""
+    return _pick_gather(A, dtype)[1]
+
+
+def _pick_gather(A, dtype):
+    from saena_tpu_torch.ops.strip8_spmv import (
+        strip8_bytes_estimate, strip8_from_csr, strip8_time_estimate)
+    from saena_tpu_torch.ops.strip_spmv import (
+        strip_bytes_estimate, strip_from_csr, strip_time_estimate)
+
+    A = A.tocsr()
+    cap = min(GATHER_MAX_BYTES, GATHER_MAX_BYTES_PER_NNZ * max(1, A.nnz))
+    best = (float("inf"), None)
+    if A.nnz >= 4096:
+        if strip_bytes_estimate(A, dtype) <= cap:
+            best = min(best, (strip_time_estimate(A, dtype), strip_from_csr),
+                       key=lambda b: b[0])
+        if strip8_bytes_estimate(A, dtype) <= cap:
+            best = min(best, (strip8_time_estimate(A, dtype), strip8_from_csr),
+                       key=lambda b: b[0])
+    if bsr_bytes_estimate(A, dtype) <= cap:
+        best = min(best, (bsr_time_estimate(A, dtype), bsr_from_csr),
+                   key=lambda b: b[0])
+    return best
 
 
 # ---------------------------------------------------------------------------
@@ -315,8 +474,25 @@ def bsr_block_width(rows: np.ndarray, cols: np.ndarray,
     return n_br, max(1, int(np.diff(pat.indptr).max()))
 
 
+_BSR_MEMO = "_saena_torch_bsr_geom"
+
+
 def bsr_bytes_estimate(A: sp.spmatrix, dtype=torch.float32) -> int:
-    """Bytes of A's (8, 128)-block storage at ``dtype``."""
-    coo = A.tocoo()
-    n_br, W = bsr_block_width(coo.row, coo.col, A.shape)
+    """Bytes of A's (8, 128)-block storage at ``dtype``; the (n_br, W)
+    geometry is memoized on the matrix object keyed by (shape, nnz)."""
+    key = (A.shape, A.nnz)
+    tok = getattr(A, _BSR_MEMO, None)
+    if tok is not None and tok[0] == key:
+        n_br, W = tok[1]
+    else:
+        coo = A.tocoo()
+        n_br, W = bsr_block_width(coo.row, coo.col, A.shape)
+        set_bsr_geometry(A, n_br, W)
     return n_br * W * 8 * 128 * dtype.itemsize
+
+
+def set_bsr_geometry(A: sp.spmatrix, n_br: int, W: int) -> None:
+    try:
+        setattr(A, _BSR_MEMO, ((A.shape, A.nnz), (n_br, W)))
+    except AttributeError:
+        pass

@@ -3,7 +3,12 @@
 - V-cycle and pCG on identical device state: saena_tpu's hierarchy is
   flattened to numpy arrays and loaded with ``convert.load_hierarchy``; the
   V-cycle outputs agree to rtol 1e-10 (same arithmetic, summed in another
-  order), pCG to the same iteration count and histories at rtol 1e-8.
+  order), pCG to the same iteration count and histories at rtol 1e-8. The
+  carried state includes structural transfers (SmoothedP/SmoothedR around
+  saena_tpu's strip layouts) under structural_transfers="force".
+- Under "force", the port's own setup gives the levels and the iteration
+  count of saena_tpu's own setup (its layouts picked by other cost
+  constants).
 - The port alone, through its public API on device="cpu", reproduces the
   convergence goldens (tests/goldens/convergence.json): levels, exact
   iteration counts, residual histories at the goldens' own rtol 1e-6.
@@ -35,9 +40,25 @@ GOLDENS = json.load(open(os.path.join(os.path.dirname(__file__), "goldens",
                                       "convergence.json")))
 
 
+FIELDS = {
+    "DiaMatrix": ("data",),
+    "EllMatrix": ("cols", "vals", "spill_rows", "spill_cols", "spill_vals"),
+    "DenseMatrix": ("data",),
+    "BsrMatrix": ("blocks", "bcols"),
+    "StripMatrix": ("idx", "vals", "strip_of", "rb_local", "sb_of"),
+    "Strip8Matrix": ("idx", "vals", "strips", "gather_idx"),
+}
+META = {
+    "StripMatrix": ("perrow", "krb", "n_rows_pad", "n_cols_pad", "n_out",
+                    "pick_pairs"),
+    "Strip8Matrix": ("perrow", "mode", "n_cols_pad", "n_out"),
+}
+
+
 def flatten_hierarchy(H):
-    """(arrays, meta) of a saena_tpu Hierarchy built by its CPU branch
-    (DIA / ELL / dense levels, direct P/R), for convert.load_hierarchy."""
+    """(arrays, meta) of a saena_tpu Hierarchy (DIA / ELL / dense / BSR /
+    strip / strip8 levels, direct or structural P/R), for
+    convert.load_hierarchy."""
     arrays, levels = {}, []
 
     def put(key, M):
@@ -45,20 +66,24 @@ def flatten_hierarchy(H):
             return None
         kind = type(M).__name__
         spec = {"format": kind, "shape": list(M.shape), "nnz": int(M.nnz)}
+        if kind in ("SmoothedP", "SmoothedR"):
+            inner = "Pt" if kind == "SmoothedP" else "PtT"
+            spec[inner] = put(f"{key}.{inner}", getattr(M, inner))
+            spec["A"] = "level"
+            arrays[f"{key}.wq"] = np.array(M.wq)
+            return spec
+        if kind not in FIELDS:
+            raise AssertionError(f"unexpected format {kind}")
         if kind == "DiaMatrix":
             spec["offsets"] = list(M.offsets)
-            fields = ("data",)
-        elif kind == "EllMatrix":
-            fields = ("cols", "vals", "spill_rows", "spill_cols", "spill_vals")
-        elif kind == "DenseMatrix":
-            fields = ("data",)
-        else:
-            raise AssertionError(f"unexpected format {kind}")
-        for f in fields:
+        spec.update({k: getattr(M, k) for k in META.get(kind, ())})
+        for f in FIELDS[kind]:
             arrays[f"{key}.{f}"] = np.array(getattr(M, f))
         return spec
 
     for l, L in enumerate(H.levels):
+        for T in (L.P, L.R):
+            assert getattr(T, "A", L.A) is L.A   # structural: the level's A
         arrays[f"L{l}.inv_diag"] = np.array(L.inv_diag)
         levels.append({"n": L.n, "lvl": L.lvl, "eig_max": L.eig_max,
                        "A": put(f"L{l}.A", L.A), "P": put(f"L{l}.P", L.P),
@@ -93,6 +118,9 @@ CASES = {
     "poisson12_coarse_cg": lambda: (*_interior(12), JOptions(direct_solver="CG")),
     # two levels, the coarsest of n_pad 2944 > 2048: LU, not the inverse
     "poisson20_lu": lambda: (*_interior(20), JOptions(max_level=1)),
+    # structural P/R around saena_tpu's strip layouts
+    "poisson16_structural": lambda: (
+        *_interior(16), JOptions(structural_transfers="force")),
 }
 
 
@@ -158,6 +186,36 @@ def test_float_storage_matches_jax():
     np.testing.assert_allclose(y, ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
     jres = jsolvers.solve_pCG(H, rhs, params=jh.SolveParams.from_options(jo))
     assert tsolvers.solve_pCG(T, rhs).iters == int(jres.iters)
+
+
+def test_structural_case_carries_smoothed_transfers(same_state):
+    name, H, T, opts, rhs = same_state
+    kinds = {type(L.P).__name__ for L in T.levels[:-1]}
+    assert kinds == ({"SmoothedP"} if name.endswith("structural")
+                     else {"EllMatrix"})
+
+
+@pytest.mark.parametrize("m", [16, 24])
+def test_port_force_matches_jax_levels_and_iterations(m):
+    """Each package under structural_transfers="force" with its own setup
+    and its own layout picks: the same levels and pCG iterations."""
+    from saena_tpu_torch.amg.hierarchy import setup
+    from saena_tpu_torch.config import Options
+
+    A, rhs = _interior(m)
+    H, jinfo = jh.setup(A, JOptions(structural_transfers="force"),
+                        dtype=jnp.float64)
+    T, tinfo = setup(A, Options(structural_transfers="force"),
+                     dtype=torch.float64, device="cpu")
+    assert tinfo.sizes == jinfo.sizes
+    assert all(type(L.P).__name__ == "SmoothedP" for L in T.levels[:-1])
+    rhs = np.pad(rhs, (0, H.n_pad - H.n))
+    ref = jsolvers.solve_pCG(H, rhs, params=jh.SolveParams(), max_iter=40)
+    res = tsolvers.solve_pCG(T, rhs, params=SolveParams(), max_iter=40)
+    assert res.iters == int(ref.iters)
+    np.testing.assert_allclose(res.history[: res.iters + 1].numpy(),
+                               np.asarray(ref.history)[: res.iters + 1],
+                               rtol=1e-6)
 
 
 def _golden_solve(A_csr, opts, rhs, max_iter=300):
