@@ -25,6 +25,11 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    - strip8: Pt^T of level 0 as the planner builds it, the level-2 A at
      every perrow (1, 2, 4) and a synthetic interval-mode layout whose last
      tile's strip base reaches past the last strip of x.
+   - both: an operator of one real pair / tile, and layouts cut into small
+     chunks so that row blocks are cut (unit counts no multiple of the
+     chunk). Every case runs on both paths of its kernel (rows and stream),
+     twice, and with x a view that is not 16-byte aligned: the results must
+     agree bit for bit, and the tickets must be left zero.
 3. The main path on the card, launch counters zeroed just before each run
    and read just after:
    (a) the 48^3 Poisson pCG solve through Matrix/AMG
@@ -37,13 +42,17 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
        chosen here by the port's own builders: every Pt in strip, every Pt^T
        in strip8 (inside SmoothedP/SmoothedR), the level-2 A in whichever of
        strip and strip8 the picker did not choose. Same golden check.
-   Every kernel must have launched in phase 3.
+   Every kernel must have launched in phase 3, the strip and strip8
+   kernels on both of their paths.
 4. Times at the main path's shapes, by CUDA events over graph-replayed
    calls: kernel, plain version, one cuSPARSE CSR product of the same
    operator as a yardstick, and the bound (bytes over memory rate vs
    operations over peak rate; bytes count the format's arrays the kernel
-   reads, x and y once each). Then the H100 cost constants of the format
-   picker, fitted from these times.
+   reads, x and y once each). A strip / strip8 layout is timed on the path
+   its wrapper picks and on the other one; the rows path is PR 2's kernel,
+   so its time stands beside the new one. Every strip / strip8 operator of
+   the f32 solve is timed with its launches per solve. Then the H100 cost
+   constants of the format picker, fitted from these times.
 
 The second-to-last line is one JSON object listing every ported kernel; the
 last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -315,9 +324,32 @@ def synthetic_interval(dev, n_rb, tiles_per_rb, n_strips, perrow, seed):
                         n_out=n_rows)
 
 
+def rechunked(Mx, chunk_min):
+    """The same layout on the stream path, its work cut into equal chunks
+    of about chunk_min units (pairs or tiles)."""
+    return copy.copy(Mx).rechunk(chunk_min, whole_max=0)
+
+
+def on_path(Mx, path):
+    """The same layout sent down the kernel's rows or stream path."""
+    out = copy.copy(Mx)
+    if path == "stream":
+        return out.rechunk()
+    out.chunks = None
+    return out
+
+
+def path_of(Mx) -> str:
+    return "rows" if Mx.chunks is None else "stream"
+
+
 def gather_cases(dev, ops):
     """{name: (kind, f64 layout on the card, host CSR or None)} for the
-    strip and strip8 checks and times."""
+    strip and strip8 checks and times. Besides the main-path shapes: an
+    operator of one real pair / tile (the rest zero padding), a layout cut
+    into chunks of 7 units (a unit count that is no multiple of the chunk,
+    row blocks cut by chunk boundaries) and the interval-mode edge case cut
+    into chunks of 2 tiles."""
     import torch
 
     from saena_tpu_torch.ops.strip8_spmv import strip8_from_csr
@@ -335,56 +367,80 @@ def gather_cases(dev, ops):
     for pr in (1, 2, 4):
         cases[f"L2_A_strip8_pr{pr}"] = (
             "strip8", strip8_from_csr(A2, f64, dev, perrow=pr), A2)
-    cases["interval_edge"] = ("strip8", synthetic_interval(dev, 16, 3, 10, 2, 3),
-                              None)
+    interval = synthetic_interval(dev, 16, 3, 10, 2, 3)
+    cases["interval_edge"] = ("strip8", interval, None)
+    cases["interval_edge_chunk2"] = ("strip8", rechunked(interval, 2), None)
+    tiny = tiny_operator()
+    cases["one_pair"] = ("strip", strip_from_csr(tiny, f64, dev), tiny)
+    cases["one_tile"] = ("strip8", strip8_from_csr(tiny, f64, dev), tiny)
+    cases["L0_Pt_chunk7"] = ("strip", rechunked(cases["L0_Pt"][1], 7), ops["L0_Pt"])
+    cases["L0_PtT_chunk7"] = ("strip8", rechunked(cases["L0_PtT"][1], 7),
+                              ops["L0_PtT"])
     return cases
 
 
 def check_gather(dev, cases):
-    """strip / strip8 kernel vs plain in f32 and f64 for every case.
-    Returns (rows of (case, dtype, scaled_err, max_abs_err), failure or
-    None)."""
+    """strip / strip8 kernel vs plain in f32 and f64 for every case, on the
+    path its wrapper picks and on the other one (the cases cut into chunks
+    on the stream path only); two launches must agree bit for bit, and x
+    passed as a view that is not 16-byte aligned must give the same result.
+    Returns (rows of (case, path, dtype, scaled_err, max_abs_err), failure
+    or None)."""
     import torch
 
     from saena_tpu_torch.ops import strip8_spmv as s8
     from saena_tpu_torch.ops import strip_spmv as s1
 
     rows, bad = [], None
-    for case, (kind, M64, _) in cases.items():
+    for case, (kind, M_case, _) in cases.items():
         mod = s1 if kind == "strip" else s8
         kern = mod.strip_spmv if kind == "strip" else mod.strip8_spmv
         plain = mod.strip_spmv_plain if kind == "strip" else mod.strip8_spmv_plain
-        n = M64.shape[0]
+        n = M_case.shape[0]
         rng = np.random.default_rng(len(case))
-        x64 = torch.zeros(M64.n_cols_pad, dtype=torch.float64, device=dev)
-        x64[: M64.shape[1]] = torch.tensor(rng.standard_normal(M64.shape[1]),
-                                           device=dev)
-        y_abs = plain(with_vals(M64, M64.vals.abs()), x64.abs())
-        for dname in ("float32", "float64"):
+        x64 = torch.zeros(M_case.n_cols_pad, dtype=torch.float64, device=dev)
+        x64[: M_case.shape[1]] = torch.tensor(rng.standard_normal(M_case.shape[1]),
+                                              device=dev)
+        y_abs = plain(with_vals(M_case, M_case.vals.abs()), x64.abs())
+        paths = ["stream"] if "chunk" in case else ["rows", "stream"]
+        for path, dname in ((p, d) for p in paths for d in ("float32", "float64")):
+            M64 = M_case if path_of(M_case) == path else on_path(M_case, path)
             dt = getattr(torch, dname)
             Mx = M64 if dt == torch.float64 else with_vals(M64, M64.vals.to(dt))
             x = x64.to(dt)
+            store = torch.zeros(x.numel() + 1, dtype=dt, device=dev)
+            store[1:] = x
             yk = kern(Mx, x)
+            same = torch.equal(yk, kern(Mx, x)) and torch.equal(yk, kern(Mx, store[1:]))
             yp = plain(Mx, x)
             torch.cuda.synchronize()
             diff = (yk.double() - yp.double()).abs()
             err = float((diff / y_abs.clamp_min(1e-300)).max())
             abs_err = float(diff.max())
             pad_ok = bool((yk[n:] == 0).all())
-            ok = (yk.dtype == dt and yk.shape == yp.shape and pad_ok
-                  and np.isfinite(err) and err <= TOL[dname])
-            rows.append((case, dname, err, abs_err))
+            C = Mx.chunks
+            tickets_ok = not (Mx.counter.any() or C is not None and C.counter.any())
+            ok = (yk.dtype == dt and yk.shape == yp.shape and pad_ok and same
+                  and tickets_ok and np.isfinite(err) and err <= TOL[dname])
+            rows.append((case, path, dname, err, abs_err))
             geo = (f"perrow={Mx.perrow} krb={Mx.krb} pairs={Mx.idx.shape[0]}"
                    if kind == "strip" else
-                   f"perrow={Mx.perrow} mode={Mx.mode} tiles={Mx.idx.shape[0]}")
-            print(f"  {kind:<6} {case:<16} {dname:<8} {geo:<36} "
+                   f"perrow={Mx.perrow} mode={Mx.mode} tiles={Mx.tile_list.numel()}")
+            grid = (f"warps={C.n_chunks} cut_row_blocks={C.n_cuts}" if C is not None
+                    else f"split={Mx.n_split}")
+            print(f"  {kind:<6} {case:<20} {path:<6} {dname:<8} {geo:<36} {grid:<28} "
                   f"scaled_err={err:.3e} max_abs_err={abs_err:.3e} "
-                  f"pad_zero={pad_ok} {'ok' if ok else 'FAIL'}")
+                  f"pad_zero={pad_ok} runs_equal={same} {'ok' if ok else 'FAIL'}")
             if not ok and bad is None:
-                bad = f"{kind}/{case}/{dname}: err {err:.3e}, pad {pad_ok}"
+                bad = (f"{kind}/{case}/{path}/{dname}: err {err:.3e}, pad {pad_ok}, "
+                       f"runs equal {same}, tickets zero {tickets_ok}")
     if bad is None and not any(k == "strip" and M.krb > 1
                                for k, M, _ in cases.values()):
         bad = "no strip case has krb > 1"
+    if bad is None and not all(any(k == kind and M.chunks is not None and M.chunks.n_cuts
+                                   for k, M, _ in cases.values())
+                               for kind in ("strip", "strip8")):
+        bad = "no case of a gather kernel has a cut row block"
     return rows, bad
 
 
@@ -629,19 +685,40 @@ def time_wide_dia(dev, A1):
 
 
 def gather_bytes(kind, Mx) -> int:
-    """Bytes the kernel must move: the layout arrays it reads, x and y."""
+    """Bytes the kernel must move on its path: the layout arrays and work
+    tables it reads, x and y."""
     csz = Mx.vals.element_size()
     nb = Mx.idx.numel() + Mx.vals.numel() * csz + Mx.n_cols_pad * csz
+    C = Mx.chunks
+    if C is not None:
+        nb += 4 * sum(t.numel() for t in C.tensors()[:3])
     if kind == "strip":
-        nb += 4 * (Mx.strip_of.numel() + Mx.rb_ptr.numel()) + Mx.n_rows_pad * csz
+        nb += 4 * Mx.strip_of.numel() + Mx.n_rows_pad * csz
+        nb += 4 * Mx.rb_ptr_dev.numel() if C is None else 0
     else:
-        nb += 4 * (Mx.strips.numel() + Mx.gather_idx.numel())
         nb += Mx.gather_idx.shape[0] * (128 // Mx.perrow) * csz
+        if C is None:
+            nb += 4 * (Mx.strips.numel() + Mx.gather_idx.numel())
+        else:
+            nb += 4 * (Mx.unit_strips.numel()
+                       + (0 if Mx.tile_identity else Mx.tile_list.numel()))
     return int(nb)
 
 
-def time_gather(dev, case, kind, M64, A_host, plain=True, library=True):
-    """Kernel (and plain, cuSPARSE) ms of one strip/strip8 layout in f32."""
+# PR 2's final times of the gather kernels (ms, f32, graph-replayed) on
+# NVIDIA H100 80GB HBM3 at 700.00 W, from PR 2's chip_smoke.py (PERF.md);
+# printed beside this run's times, as is this run's time of the rows path,
+# which is PR 2's kernel
+PR2_MS = {"L0_Pt": 9.331e-3, "L2_A_strip_pr8": 52.42e-3,
+          "L2_A_strip_pr1": 68.41e-3, "L0_PtT": 2.636e-3,
+          "L2_A_strip8_pr4": 24.07e-3, "L2_A_strip8_pr1": 30.36e-3}
+
+
+def time_gather(dev, case, kind, M64, A_host, plain=True, library=True,
+                **extra):
+    """Kernel (and plain, cuSPARSE) ms of one strip/strip8 layout in f32, on
+    the path its wrapper picks (``ms``) and on each path (``rows_ms``,
+    ``stream_ms``)."""
     import torch
 
     from saena_tpu_torch.ops import strip8_spmv as s8
@@ -656,11 +733,21 @@ def time_gather(dev, case, kind, M64, A_host, plain=True, library=True):
     nnz = int(A_host.nnz) if A_host is not None else Mx.nnz
     nbytes = gather_bytes(kind, Mx)
     b_ms, b_by = bound(nbytes, 2 * nnz, "float32")
+    units = int(Mx.idx.shape[0] if kind == "strip" else Mx.tile_list.numel())
+    path = path_of(Mx)
     r = {"kernel": f"{kind}_spmv", "case": case, "dtype": "float32",
-         "perrow": Mx.perrow, "units": int(Mx.idx.shape[0]),
-         "ms": graph_ms(lambda: kern(Mx, x)),
+         "perrow": Mx.perrow, "units": units, "path": path,
+         "ms": graph_ms(lambda: kern(Mx, x)), "pr2_ms": PR2_MS.get(case),
          "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-         "flops": 2 * nnz, "fill": nnz / Mx.idx.numel()}
+         "flops": 2 * nnz, "fill": nnz / Mx.idx.numel(), **extra}
+    r["share_of_bound"] = b_ms / r["ms"]
+    other = "stream" if path == "rows" else "rows"
+    Mo = on_path(Mx, other)
+    r[f"{path}_ms"] = r["ms"]
+    r[f"{other}_ms"] = graph_ms(lambda: kern(Mo, x))
+    C = Mx.chunks if Mx.chunks is not None else Mo.chunks
+    r["stream_warps"], r["stream_cut_row_blocks"] = C.n_chunks, C.n_cuts
+    r["rows_split"] = Mx.n_split
     if kind == "strip":
         r["krb"] = Mx.krb
     else:
@@ -675,6 +762,62 @@ def time_gather(dev, case, kind, M64, A_host, plain=True, library=True):
         r["library_ms"] = graph_ms(lambda: Acsr @ x)
     print("  " + json.dumps(r))
     return r
+
+
+def solve_gather_ops(solver) -> list:
+    """(label, kind, layout, host CSR) of every strip / strip8 operator in
+    the solver's hierarchy: a level's A, its direct P and R, and the Pt /
+    Pt^T inside its structural SmoothedP / SmoothedR."""
+    from saena_tpu_torch.amg.prolongation import tentative_prolongator
+    from saena_tpu_torch.ops.strip8_spmv import Strip8Matrix
+    from saena_tpu_torch.ops.strip_spmv import StripMatrix
+
+    H, info = solver.hierarchy, solver.info
+    kinds = {StripMatrix: "strip", Strip8Matrix: "strip8"}
+    out = []
+    for l, L in enumerate(H.levels):
+        cands = [(f"L{l}_A", L.A, lambda: info.csr_levels[l])]
+        for name, Mx, direct, inner in (("P", L.P, info.Ps, "Pt"),
+                                        ("R", L.R, info.Rs, "PtT")):
+            if Mx is None:
+                continue
+            if hasattr(Mx, inner):
+                Pt = lambda: tentative_prolongator(info.structs[l][0],
+                                                   info.sizes[l + 1])
+                csr = Pt if inner == "Pt" else (lambda: Pt().T.tocsr())
+                cands.append((f"L{l}_{name}[{inner}]", getattr(Mx, inner), csr))
+            else:
+                cands.append((f"L{l}_{name}", Mx, lambda d=direct: d[l]))
+        for label, Mx, csr in cands:
+            if type(Mx) in kinds:
+                out.append((label, kinds[type(Mx)], Mx, csr()))
+    return out
+
+
+def launches_per_operator(solver) -> dict:
+    """{id(layout): kernel launches in one pCG solve}, counted by wrapping
+    the gather wrappers for one solve."""
+    import torch
+
+    from saena_tpu_torch.ops import strip8_spmv as s8
+    from saena_tpu_torch.ops import strip_spmv as s1
+
+    counts: dict = {}
+    saved = (s1.strip_spmv, s8.strip8_spmv)
+
+    def counting(fn):
+        def wrapped(A, x):
+            counts[id(A)] = counts.get(id(A), 0) + 1
+            return fn(A, x)
+        return wrapped
+
+    s1.strip_spmv, s8.strip8_spmv = counting(saved[0]), counting(saved[1])
+    try:
+        solver.solve_pCG()
+        torch.cuda.synchronize()
+    finally:
+        s1.strip_spmv, s8.strip8_spmv = saved
+    return counts
 
 
 def tiny_operator():
@@ -754,9 +897,14 @@ def main() -> int:
     def zero():
         for mod in counters.values():
             mod.launches = 0
+        s1_mod.stream_launches = s8_mod.stream_launches = 0
 
     def read():
-        return {k: mod.launches for k, mod in counters.items()}
+        out = {k: mod.launches for k, mod in counters.items()}
+        for k, mod in (("strip_spmv", s1_mod), ("strip8_spmv", s8_mod)):
+            out[f"{k}/stream"] = mod.stream_launches
+            out[f"{k}/rows"] = mod.launches - mod.stream_launches
+        return out
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -821,10 +969,10 @@ def main() -> int:
         return fail(f"forced main path: {bad}")
     print(f"[3b] launches: {launches_b}")
     launches = {k: launches_a64[k] + launches_a32[k] + launches_b[k]
-                for k in counters}
+                for k in launches_b}
     print(f"[3] launches on the main path: {launches}")
     if min(launches.values()) <= 0:
-        return fail(f"a kernel never launched on the main path: {launches}")
+        return fail(f"a kernel or a path never launched on the main path: {launches}")
 
     # ---- 4. times
     print("[4] times (ms per call; bound = max(bytes/HBM, ops/peak))")
@@ -832,12 +980,17 @@ def main() -> int:
     wide = time_wide_dia(dev, ops["L1_A"])
     grows = []
     for case, (kind, M64, A_host) in cases.items():
-        if case == "interval_edge":
-            continue
-        main_shape = case in ("L0_Pt", "L0_PtT")
-        grows.append(time_gather(dev, case, kind, M64, A_host, plain=True,
-                                 library=main_shape or case.endswith(
-                                     ("pr1", "pr2", "pr4"))))
+        if case.startswith(("L0_", "L2_A_")) and "chunk" not in case:
+            grows.append(time_gather(dev, case, kind, M64, A_host))
+    print("[4] every strip / strip8 operator of the f32 solve (phase 3a), "
+          "with its launches per solve")
+    per_op = launches_per_operator(solver32)
+    solve_rows = [time_gather(dev, label, kind, Mx, A_host,
+                              launches_per_solve=per_op.get(id(Mx), 0))
+                  for label, kind, Mx, A_host in solve_gather_ops(solver32)]
+    if not solve_rows or min(r["launches_per_solve"] for r in solve_rows) <= 0:
+        return fail("a strip / strip8 operator of the f32 solve never launched: "
+                    + json.dumps({r["case"]: r["launches_per_solve"] for r in solve_rows}))
     consts = fit_constants(dev, ops, grows)
     print("[4] fitted cost constants: " + json.dumps(consts))
     print(f"[4] total {time.perf_counter() - t_start:.1f} s")
@@ -845,7 +998,8 @@ def main() -> int:
     head = next(r for r in times if r["dtype"] == "float32" and r["variant"] == "spmv")
     head_err = max(e for case, v, d, _, e in checks
                    if case == f"poisson{M}" and v == "spmv" and d == "float32")
-    gerr = {c: e for c, d, _, e in gchecks if d == "float32"}
+    gerr = {c: max(e for c2, _, d, _, e in gchecks if c2 == c and d == "float32")
+            for c, *_ in gchecks}
     grow = {r["case"]: r for r in grows}
 
     def entry(name, source, replaces, r, err):

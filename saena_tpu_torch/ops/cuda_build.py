@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and compiles on its own
 with nvcc into `_build/lib<name>-<digest>.so`, where the digest covers the
-source and the flags, so an edited source is rebuilt and an unchanged one is
+source, every header under `csrc/` (`*.cuh`, which the sources share) and
+the flags, so an edited source or header is rebuilt and an unchanged one is
 reused. The library is loaded with ctypes; nothing includes PyTorch's
 headers, which keeps a build at seconds. Several sources build in parallel,
 one nvcc process each. A build happens at first use, never at import, and a
@@ -43,8 +44,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in (f"{name}.cu", *headers):
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -335,7 +335,7 @@ def bsr_from_csr(A: sp.spmatrix, dtype, device, timer=None) -> BsrMatrix:
 # layout (one tile), the launch floor of a gather kernel.
 BSR_STREAM_BPS = 2.846e12
 BSR_TIME_FACTOR = 2.22
-KERNEL_LAUNCH_S = 2.01e-6
+KERNEL_LAUNCH_S = 2.02e-6
 
 
 def bsr_time_estimate(A: sp.spmatrix, dtype=torch.float32) -> float:

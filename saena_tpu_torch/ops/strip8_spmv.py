@@ -14,18 +14,25 @@ sublanes gathers from its own 128-column strip of x:
   planner, carried across with ``convert``.
 
 ``gather_idx[rb]`` lists the row block's tiles, padded with ``n_tiles_pad``.
-The kernel splits each row block's list over ``n_split`` blocks (about
-``SPLIT_TILES`` entries each); ``counter`` holds its per-row-block tickets
-(zeros between launches, so a matrix takes one launch at a time: its
-launches go to one stream).
+When the matrix is built, ``tile_list`` lists the real tiles in row-block
+order (padding dropped; a row block's tiles need not be contiguous) and
+``rbt_ptr`` where each row block's start, ``unit_strips`` the strip each
+sublane of each listed tile reads (-1 outside x): the stream path's inputs.
+Its work tables, ``chunks`` (ops/chunks.py), cut that list into chunks, one
+per kernel warp, with tickets for the row blocks the cuts split; the rows
+path has ``n_split`` and ``counter``. Tickets are zeros between launches,
+so a matrix takes one launch at a time: its launches go to one stream.
+``tile_identity`` says that list position k is tile k, as in every layout
+the port's planner builds; the kernel then skips the tile_list lookup.
 
     y[rb * Q + q] = sum over the row block's tiles, sublanes and the
                     perrow lane groups s of vals * x[strip * 128 + idx]
                     at lane s * Q + q
 
 `strip8_spmv` launches the CUDA kernel (csrc/strip8_spmv.cu) for tensors
-on the card and runs `strip8_spmv_plain` for tensors on the CPU; it never
-falls back from one to the other. `launches` counts kernel launches.
+on the card, on the layout's path, and runs `strip8_spmv_plain` for
+tensors on the CPU; it never falls back from one to the other. `launches`
+counts kernel launches, `stream_launches` those of the stream path.
 
 Cost constants (``STRIP8_NS_PER_TILE``, ``_COST_GENERAL``,
 ``_COST_INTERVAL``) are H100 measurements from ``chip_smoke.py`` phase 4;
@@ -42,6 +49,8 @@ import scipy.sparse as sp
 import torch
 
 from saena_tpu_torch.ops import cuda_build
+from saena_tpu_torch.ops import chunks
+from saena_tpu_torch.ops.chunks import ChunkTables
 from saena_tpu_torch.ops.dia_spmv import compute_dtype
 from saena_tpu_torch.ops.formats import (
     _NP_FLOAT,
@@ -52,13 +61,47 @@ from saena_tpu_torch.ops.formats import (
 )
 
 GROUP8 = 64           # tile-count padding unit (JAX layout)
-SPLIT_TILES = 8       # gather_idx entries per kernel block when split
-MAX_SPLIT = 64
 _PERROW8 = (1, 2, 4)
 MODES = ("general", "interval")
-launches = 0          # kernel launches made by strip8_spmv
+launches = 0          # kernel launches made by strip8_spmv, both paths
+stream_launches = 0   # of which the stream path's
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 2}
+# The two paths of the kernel (csrc/strip8_spmv.cu). The rows path gives a
+# block to each row block, or to each SPLIT_TILES entries of its gather_idx
+# row (at most MAX_SPLIT blocks a row block). The stream path gives warps
+# equal chunks of the real tiles (ops/chunks.py: at least STRIP8_CHUNK_MIN
+# tiles a warp, row blocks of up to STRIP8_WHOLE_MAX tiles kept whole when
+# the operator is too small to fill the card). A layout takes the stream
+# path when its row blocks are longer than SPLIT_TILES (the rows path would
+# split them and chain their tiles) and its real tiles fit the warps the
+# card keeps resident; every other layout, the 48^3 level-2 A included,
+# runs faster on the rows path (PERF.md, PR 3).
+STRIP8_CHUNK_MIN = 2
+STRIP8_WHOLE_MAX = 8
+SPLIT_TILES = 8
+MAX_SPLIT = 64
+
+
+def real_tiles(gather_idx: np.ndarray, n_tiles: int):
+    """(tile_list, rbt_ptr): the entries of gather_idx below n_tiles (the
+    real tiles, padding dropped) in row-block order, and where each row
+    block's entries start in that list."""
+    real = gather_idx < n_tiles
+    ptr = np.concatenate([[0], np.cumsum(real.sum(axis=1))]).astype(np.int32)
+    return gather_idx[real].astype(np.int32), ptr
+
+
+def unit_strips(strips: np.ndarray, tiles: np.ndarray, mode: str,
+                n_strips: int) -> np.ndarray:
+    """(len(tiles) * 8,) int32: the strip each sublane of each listed tile
+    reads, general and interval mode alike; -1 where that strip lies
+    outside x (it reads zeros)."""
+    if mode == "interval":
+        s = strips[tiles].astype(np.int64)[:, None] + np.arange(8)
+    else:
+        s = strips.reshape(-1, 8)[tiles].astype(np.int64)
+    return np.where((s >= 0) & (s < n_strips), s, -1).astype(np.int32).reshape(-1)
 
 
 class Strip8Matrix:
@@ -66,7 +109,10 @@ class Strip8Matrix:
 
     idx (n_tiles_pad, 8, 128) int8; vals (n_tiles_pad, 8, 128); strips
     int32, (n_tiles_pad * 8,) in general mode, (n_tiles_pad,) in interval
-    mode; gather_idx (n_rb, t_max) int32; derived: n_split, counter."""
+    mode; gather_idx (n_rb, t_max) int32; derived: n_split and counter
+    (the rows path), tile_list (n_real,) int32, tile_identity, unit_strips
+    (n_real * 8,) int32, rbt_ptr (n_rb + 1,) int32 numpy and, on the stream
+    path, chunks (its work tables)."""
 
     def __init__(self, idx, vals, strips, gather_idx, shape, nnz, perrow=1,
                  mode="general", n_cols_pad=0, n_out=0):
@@ -77,9 +123,30 @@ class Strip8Matrix:
         self.shape, self.nnz = tuple(shape), int(nnz)
         self.perrow, self.mode = int(perrow), mode
         self.n_cols_pad, self.n_out = int(n_cols_pad), int(n_out)
+        tiles, self.rbt_ptr = real_tiles(gather_idx.cpu().numpy(), idx.shape[0])
+        self.tile_list = index_to_device(tiles, vals.device)
+        self.tile_identity = bool((tiles == np.arange(tiles.size)).all())
+        self.unit_strips = index_to_device(
+            unit_strips(strips.cpu().numpy(), tiles, mode, self.n_cols_pad // 128),
+            vals.device)
+        # the rows path's tables
         n_rb, t_max = gather_idx.shape
         self.n_split = int(np.clip(-(-t_max // SPLIT_TILES), 1, MAX_SPLIT))
         self.counter = torch.zeros(n_rb, dtype=torch.int32, device=vals.device)
+        self.chunks = None
+        if t_max > SPLIT_TILES and tiles.size <= chunks.resident_warps(
+                "strip8_spmv", vals.dtype, vals.device):
+            self.rechunk()
+
+    def rechunk(self, chunk_min: int = STRIP8_CHUNK_MIN,
+                whole_max: int = STRIP8_WHOLE_MAX):
+        """Cut the tile list into the stream path's work chunks
+        (ops/chunks.py), which sends every launch down that path; returns
+        self."""
+        self.chunks = ChunkTables(
+            self.rbt_ptr, self.device, 128 // self.perrow, chunk_min, whole_max,
+            chunks.warps_per_sm("strip8_spmv", self.dtype, self.device))
+        return self
 
     @property
     def dtype(self):
@@ -128,12 +195,14 @@ def strip8_spmv_plain(A: Strip8Matrix, x: torch.Tensor) -> torch.Tensor:
 
 
 @functools.cache
-def _kernel_fn():
-    fn = cuda_build.load("strip8_spmv").saena_strip8_apply
+def _kernel_fns():
+    lib = cuda_build.load("strip8_spmv")
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.restype = ctypes.c_int
-    fn.argtypes = [i, i, p, p, p, p, i, i, i, i, p, i, i, p, p, p, p]
-    return fn
+    stream, rows = lib.saena_strip8_stream, lib.saena_strip8_rows
+    stream.argtypes = [i, p, p, p, p, p, p, p, p, i, i, p, p, p, p]
+    rows.argtypes = [i, i, p, p, p, p, i, i, i, i, p, i, i, p, p, p, p]
+    stream.restype = rows.restype = ctypes.c_int
+    return stream, rows
 
 
 def strip8_spmv(A: Strip8Matrix, x: torch.Tensor) -> torch.Tensor:
@@ -146,7 +215,7 @@ def strip8_spmv(A: Strip8Matrix, x: torch.Tensor) -> torch.Tensor:
 
 
 def _strip8_cuda(A: Strip8Matrix, x):
-    global launches
+    global launches, stream_launches
     dev = A.vals.device
     if A.dtype not in _DTYPE_CODE:
         raise TypeError(f"strip8_spmv: values dtype {A.dtype} not supported "
@@ -159,35 +228,61 @@ def _strip8_cuda(A: Strip8Matrix, x):
         raise ValueError("strip8_spmv: idx/vals must be (n_tiles, 8, 128) "
                          f"int8/float, strips ({n_strips_rec},) for mode "
                          f"{A.mode!r}, gather_idx 2-D")
-    for name in ("idx", "vals", "strips", "gather_idx", "counter"):
-        t = getattr(A, name)
+    C = A.chunks
+    arrays = dict(idx=A.idx, vals=A.vals, strips=A.strips, gather_idx=A.gather_idx,
+                  counter=A.counter)
+    if C is not None:
+        arrays.update(tile_list=A.tile_list, unit_strips=A.unit_strips,
+                      **dict(zip(("heads", "segs", "cuts", "chunk_counter"), C.tensors())))
+    for name, t in arrays.items():
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"strip8_spmv: {name} must be contiguous on {dev}")
-        if name in ("strips", "gather_idx", "counter") and t.dtype != torch.int32:
+        if t.dtype != torch.int32 and name not in ("idx", "vals"):
             raise ValueError(f"strip8_spmv: {name} must be int32")
     if A.perrow not in _PERROW8:
         raise ValueError(f"strip8_spmv: perrow {A.perrow} not supported")
-    if x.device != dev or x.dim() != 1 or x.shape[0] != A.n_cols_pad:
-        raise ValueError(f"strip8_spmv: x must be 1-D ({A.n_cols_pad},) on {dev}")
-    cdt = compute_dtype(A.dtype)
-    x = x.to(cdt).contiguous()
     n_rb, t_max = A.gather_idx.shape
     if A.counter.shape != (n_rb,) or not 1 <= A.n_split <= MAX_SPLIT:
         raise ValueError("strip8_spmv: counter/n_split do not match gather_idx")
+    if x.device != dev or x.dim() != 1 or x.shape[0] != A.n_cols_pad:
+        raise ValueError(f"strip8_spmv: x must be 1-D ({A.n_cols_pad},) on {dev}")
+    if C is not None:
+        n_real = int(A.rbt_ptr[-1])
+        if (A.rbt_ptr.size != n_rb + 1 or A.tile_list.shape != (n_real,)
+                or A.unit_strips.shape != (8 * n_real,)):
+            raise ValueError("strip8_spmv: tile_list/unit_strips/rbt_ptr do not "
+                             "match gather_idx")
+        # the stream path copies idx, vals and unit_strips (16 bytes at a time)
+        for name in ("idx", "vals", "unit_strips", "heads"):
+            if arrays[name].data_ptr() % 16:
+                raise ValueError(f"strip8_spmv: {name} must be 16-byte aligned")
+    # x is read by gathers of single values: any offset in its storage does
+    x = x.to(compute_dtype(A.dtype)).contiguous()
     Q = 128 // A.perrow
-    y = torch.empty(n_rb * Q, dtype=cdt, device=dev)
-    part = torch.empty(n_rb * Q * A.n_split if A.n_split > 1 else 0, dtype=cdt,
-                       device=dev)
+    y = torch.empty(n_rb * Q, dtype=x.dtype, device=dev)
+    stream_fn, rows_fn = _kernel_fns()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _kernel_fn()(
-            _DTYPE_CODE[A.dtype], int(A.mode == "interval"), A.idx.data_ptr(),
-            A.vals.data_ptr(), A.strips.data_ptr(), A.gather_idx.data_ptr(),
-            n_rb, t_max, n_tiles, A.n_cols_pad // 128, x.data_ptr(), A.perrow,
-            A.n_split, part.data_ptr(), A.counter.data_ptr(), y.data_ptr(), stream)
+        if C is not None:
+            part = torch.empty(C.n_seg * Q if C.n_cuts else 0, dtype=x.dtype, device=dev)
+            rc = stream_fn(
+                _DTYPE_CODE[A.dtype], A.idx.data_ptr(), A.vals.data_ptr(),
+                None if A.tile_identity else A.tile_list.data_ptr(),
+                A.unit_strips.data_ptr(), C.heads.data_ptr(), C.segs.data_ptr(),
+                C.cuts.data_ptr(), x.data_ptr(), C.n_chunks, A.perrow,
+                part.data_ptr(), C.counter.data_ptr(), y.data_ptr(), stream)
+        else:
+            part = torch.empty(n_rb * Q * A.n_split if A.n_split > 1 else 0,
+                               dtype=x.dtype, device=dev)
+            rc = rows_fn(
+                _DTYPE_CODE[A.dtype], int(A.mode == "interval"), A.idx.data_ptr(),
+                A.vals.data_ptr(), A.strips.data_ptr(), A.gather_idx.data_ptr(),
+                n_rb, t_max, n_tiles, A.n_cols_pad // 128, x.data_ptr(), A.perrow,
+                A.n_split, part.data_ptr(), A.counter.data_ptr(), y.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"strip8_spmv: kernel launch failed with CUDA error {rc}")
     launches += 1
+    stream_launches += C is not None
     return y
 
 
@@ -196,12 +291,12 @@ def _strip8_cuda(A: Strip8Matrix, x):
 # ---------------------------------------------------------------------------
 
 # H100 cost model, measured by chip_smoke.py phase 4 on NVIDIA H100 80GB
-# HBM3 at a 700.00 W power limit (PERF.md, "Cost constants"): ns per padded
+# HBM3 at a 700.00 W power limit (PERF.md, "Cost constants"): ns per real
 # tile in f32 beyond formats.KERNEL_LAUNCH_S, general mode on the 48^3
 # level-2 A at the planner's perrow, interval mode on a synthetic layout of
-# about the same tile count. The planner weighs tile counts by the same
-# per-tile costs.
-STRIP8_NS_PER_TILE = {"general": 2.26, "interval": 2.00}
+# about the same tile count (both on the rows path, which the wrapper picks
+# for them). The planner weighs tile counts by the same per-tile costs.
+STRIP8_NS_PER_TILE = {"general": 2.24, "interval": 1.99}
 _COST_GENERAL = STRIP8_NS_PER_TILE["general"]
 _COST_INTERVAL = STRIP8_NS_PER_TILE["interval"]
 
@@ -374,10 +469,10 @@ def strip8_bytes_estimate(A: sp.spmatrix, dtype=torch.float32) -> int:
 
 
 def strip8_time_estimate(A: sp.spmatrix, dtype=torch.float32) -> float:
-    """Estimated matvec seconds: launch floor + padded tiles at the mode's
-    ns per tile."""
+    """Estimated matvec seconds: launch floor + real tiles at the mode's ns
+    per tile (the kernel walks the real tiles only)."""
     from saena_tpu_torch.ops.formats import KERNEL_LAUNCH_S
 
     _, plan = _plan8(A)
-    return (KERNEL_LAUNCH_S + _padded_tiles(plan[3].shape[0])
+    return (KERNEL_LAUNCH_S + plan[3].shape[0]
             * STRIP8_NS_PER_TILE[plan[8]] * 1e-9)

@@ -13,18 +13,21 @@ pair. Rows with more entries in one strip spill into replica pairs.
 Pairs are stored superblock-major (``krb`` row blocks per superblock), each
 superblock padded with zero pairs (strip 0, ``rb_local`` 0) to a multiple
 of ``GROUP``: the layout of the JAX package, so its arrays load one for
-one. The kernel needs where each row block's pairs start; ``rb_ptr`` is
-derived from ``sb_of`` and ``rb_local`` when the matrix is built, with
-``n_split``, the number of blocks that share the longest row block's pairs
-(about ``SPLIT_PAIRS`` each), and ``counter``, the kernel's per-row-block
-tickets (zeros between launches, so a matrix takes one launch at a time:
-its launches go to one stream).
+one. Its pairs come in row-block order; ``rb_ptr`` (where each row block's
+pairs start) is derived from ``sb_of`` and ``rb_local`` when the matrix is
+built, and from it the tables of the kernel's two paths: ``n_split`` and
+``counter`` for the rows path, and, when the layout takes the stream path,
+``chunks`` (ops/chunks.py): the pair list cut into chunks, one per kernel
+warp, with the row blocks that the cuts split and their tickets. Tickets are
+zeros between launches, so a matrix takes one launch at a time: its
+launches go to one stream.
 
     y[row] = sum over the row's slots of vals * x[strip * 128 + idx]
 
 `strip_spmv` launches the CUDA kernel (csrc/strip_spmv.cu) for tensors on
-the card and runs `strip_spmv_plain` for tensors on the CPU; it never falls
-back from one to the other. `launches` counts kernel launches.
+the card, on the layout's path, and runs `strip_spmv_plain` for tensors on
+the CPU; it never falls back from one to the other. `launches` counts
+kernel launches, `stream_launches` those of the stream path.
 
 Cost constants (``STRIP_NS_BY_PERROW``, ``STRIP_LAUNCH_S``) are H100
 measurements from ``chip_smoke.py`` phase 4; see PERF.md.
@@ -40,6 +43,8 @@ import scipy.sparse as sp
 import torch
 
 from saena_tpu_torch.ops import cuda_build
+from saena_tpu_torch.ops import chunks
+from saena_tpu_torch.ops.chunks import ChunkTables
 from saena_tpu_torch.ops.dia_spmv import compute_dtype
 from saena_tpu_torch.ops.formats import (
     _NP_FLOAT,
@@ -50,13 +55,26 @@ from saena_tpu_torch.ops.formats import (
 )
 
 GROUP = 64                 # pairs per superblock padding unit (JAX layout)
-SPLIT_PAIRS = 16           # pairs per kernel block when a row block is split
-MAX_SPLIT = 64
 _PERROW_CANDIDATES = (1, 2, 4, 8, 16)
 _KRB_CANDIDATES = (1, 2, 4, 8, 16, 32)
-launches = 0               # kernel launches made by strip_spmv
+launches = 0               # kernel launches made by strip_spmv, both paths
+stream_launches = 0        # of which the stream path's
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 2}
+# The two paths of the kernel (csrc/strip_spmv.cu). The rows path gives a
+# block of 1024 threads to each row block, or to each SPLIT_PAIRS pairs of
+# one (at most MAX_SPLIT blocks a row block). The stream path gives warps
+# equal chunks of the pair list (ops/chunks.py: at least STRIP_CHUNK_MIN
+# pairs a warp, row blocks of up to STRIP_WHOLE_MAX pairs kept whole when
+# the operator is too small to fill the card). A layout takes the stream
+# path when it has more pairs than the card keeps warps resident and more
+# than one row-block row group per pair (perrow > 1); on smaller layouts and
+# on the 1024-row row blocks of perrow 1 the rows path is faster (PERF.md,
+# PR 3).
+STRIP_CHUNK_MIN = 4
+STRIP_WHOLE_MAX = 16
+SPLIT_PAIRS = 16
+MAX_SPLIT = 64
 
 
 def _rpt(perrow: int) -> int:
@@ -83,7 +101,9 @@ class StripMatrix:
 
     idx (n_pairs, 8, 128) int8; vals (n_pairs, 8, 128) at the level dtype;
     strip_of, rb_local (n_pairs,) int32; sb_of (n_pairs / GROUP,) int32;
-    derived: rb_ptr (n_rows_pad / rpt + 1,) int32, n_split, counter."""
+    derived: rb_ptr (n_rows_pad / rpt + 1,) int32 numpy (rb_ptr_dev on the
+    device), n_split and counter (the rows path) and, on the stream path,
+    chunks (its work tables)."""
 
     def __init__(self, idx, vals, strip_of, rb_local, sb_of, shape, nnz,
                  perrow=4, krb=1, n_rows_pad=0, n_cols_pad=0, n_out=0,
@@ -95,12 +115,31 @@ class StripMatrix:
         self.n_rows_pad, self.n_cols_pad = int(n_rows_pad), int(n_cols_pad)
         self.n_out, self.pick_pairs = int(n_out), int(pick_pairs)
         n_rb = self.n_rows_pad // _rpt(self.perrow)
-        ptr = row_block_ptr(sb_of.cpu().numpy(), rb_local.cpu().numpy(),
-                            self.krb, n_rb)
-        longest = int(np.diff(ptr).max()) if n_rb else 0
+        strips = strip_of.cpu().numpy()
+        if self.n_cols_pad and strips.size and not (
+                0 <= strips.min() and strips.max() < self.n_cols_pad // 128):
+            raise ValueError("strip_of names a strip outside x")
+        self.rb_ptr = row_block_ptr(sb_of.cpu().numpy(), rb_local.cpu().numpy(),
+                                    self.krb, n_rb)
+        # the rows path's tables
+        longest = int(np.diff(self.rb_ptr).max()) if n_rb else 0
         self.n_split = int(np.clip(-(-longest // SPLIT_PAIRS), 1, MAX_SPLIT))
-        self.rb_ptr = index_to_device(ptr, vals.device)
+        self.rb_ptr_dev = index_to_device(self.rb_ptr, vals.device)
         self.counter = torch.zeros(n_rb, dtype=torch.int32, device=vals.device)
+        self.chunks = None
+        if self.perrow > 1 and idx.shape[0] > chunks.resident_warps(
+                "strip_spmv", vals.dtype, vals.device):
+            self.rechunk()
+
+    def rechunk(self, chunk_min: int = STRIP_CHUNK_MIN,
+                whole_max: int = STRIP_WHOLE_MAX):
+        """Cut the pair list into the stream path's work chunks
+        (ops/chunks.py), which sends every launch down that path; returns
+        self."""
+        self.chunks = ChunkTables(
+            self.rb_ptr, self.device, _rpt(self.perrow), chunk_min, whole_max,
+            chunks.warps_per_sm("strip_spmv", self.dtype, self.device))
+        return self
 
     @property
     def dtype(self):
@@ -148,13 +187,14 @@ def strip_spmv_plain(A: StripMatrix, x: torch.Tensor) -> torch.Tensor:
 
 
 @functools.cache
-def _kernel_fn():
-    fn = cuda_build.load("strip_spmv").saena_strip_apply
-    p = ctypes.c_void_p
-    fn.restype = ctypes.c_int
-    i = ctypes.c_int
-    fn.argtypes = [i, p, p, p, p, p, i, i, i, p, p, p, p]
-    return fn
+def _kernel_fns():
+    lib = cuda_build.load("strip_spmv")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    stream, rows = lib.saena_strip_stream, lib.saena_strip_rows
+    stream.argtypes = [i, p, p, p, p, p, p, p, i, i, p, p, p, p]
+    rows.argtypes = [i, p, p, p, p, p, i, i, i, p, p, p, p]
+    stream.restype = rows.restype = ctypes.c_int
+    return stream, rows
 
 
 def strip_spmv(A: StripMatrix, x: torch.Tensor) -> torch.Tensor:
@@ -167,7 +207,7 @@ def strip_spmv(A: StripMatrix, x: torch.Tensor) -> torch.Tensor:
 
 
 def _strip_cuda(A: StripMatrix, x):
-    global launches
+    global launches, stream_launches
     dev = A.vals.device
     if A.dtype not in _DTYPE_CODE:
         raise TypeError(f"strip_spmv: values dtype {A.dtype} not supported "
@@ -175,40 +215,61 @@ def _strip_cuda(A: StripMatrix, x):
     n_pairs = A.idx.shape[0]
     shapes_ok = (A.idx.shape == (n_pairs, 8, 128) and A.idx.dtype == torch.int8
                  and A.vals.shape == A.idx.shape
-                 and A.strip_of.shape == (n_pairs,) and A.rb_ptr.dim() == 1)
+                 and A.strip_of.shape == (n_pairs,))
     if not shapes_ok:
         raise ValueError("strip_spmv: idx/vals must be (n_pairs, 8, 128) "
                          "int8/float and strip_of (n_pairs,)")
-    for name in ("idx", "vals", "strip_of", "rb_ptr", "counter"):
-        t = getattr(A, name)
+    C = A.chunks
+    arrays = dict(idx=A.idx, vals=A.vals, strip_of=A.strip_of, rb_ptr=A.rb_ptr_dev,
+                  counter=A.counter)
+    if C is not None:
+        arrays.update(zip(("heads", "segs", "cuts", "chunk_counter"), C.tensors()))
+    for name, t in arrays.items():
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"strip_spmv: {name} must be contiguous on {dev}")
-        if name in ("strip_of", "rb_ptr", "counter") and t.dtype != torch.int32:
+        if t.dtype != torch.int32 and name not in ("idx", "vals"):
             raise ValueError(f"strip_spmv: {name} must be int32")
     if A.perrow not in _PERROW_CANDIDATES:
         raise ValueError(f"strip_spmv: perrow {A.perrow} not supported")
-    n_rb = A.rb_ptr.shape[0] - 1
-    if n_rb * _rpt(A.perrow) != A.n_rows_pad or A.counter.shape != (n_rb,):
-        raise ValueError("strip_spmv: rb_ptr/counter do not match n_rows_pad")
-    if not 1 <= A.n_split <= MAX_SPLIT:
-        raise ValueError(f"strip_spmv: n_split {A.n_split} out of range")
+    rpt = _rpt(A.perrow)
+    n_rb = A.rb_ptr.size - 1
+    if (n_rb * rpt != A.n_rows_pad or A.rb_ptr[-1] != n_pairs
+            or A.counter.shape != (n_rb,) or not 1 <= A.n_split <= MAX_SPLIT):
+        raise ValueError("strip_spmv: rb_ptr/counter/n_split do not match the layout")
     if x.device != dev or x.dim() != 1 or x.shape[0] != A.n_cols_pad:
         raise ValueError(f"strip_spmv: x must be 1-D ({A.n_cols_pad},) on {dev}")
-    cdt = compute_dtype(A.dtype)
-    x = x.to(cdt).contiguous()
-    y = torch.empty(A.n_rows_pad, dtype=cdt, device=dev)
-    part = torch.empty(A.n_rows_pad * A.n_split if A.n_split > 1 else 0,
-                       dtype=cdt, device=dev)
+    if C is not None:
+        # the stream path copies idx, vals and strip_of (16 bytes at a time)
+        for name in ("idx", "vals", "strip_of", "heads"):
+            if arrays[name].data_ptr() % 16:
+                raise ValueError(f"strip_spmv: {name} must be 16-byte aligned")
+        if n_pairs % 4:
+            raise ValueError("strip_spmv: the pair count must be a multiple of 4")
+    # x is read by gathers of single values: any offset in its storage does
+    x = x.to(compute_dtype(A.dtype)).contiguous()
+    y = torch.empty(A.n_rows_pad, dtype=x.dtype, device=dev)
+    stream_fn, rows_fn = _kernel_fns()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _kernel_fn()(
-            _DTYPE_CODE[A.dtype], A.idx.data_ptr(), A.vals.data_ptr(),
-            A.strip_of.data_ptr(), A.rb_ptr.data_ptr(), x.data_ptr(),
-            n_rb, A.n_split, A.perrow, part.data_ptr(), A.counter.data_ptr(),
-            y.data_ptr(), stream)
+        if C is not None:
+            part = torch.empty(C.n_seg * rpt if C.n_cuts else 0, dtype=x.dtype, device=dev)
+            rc = stream_fn(
+                _DTYPE_CODE[A.dtype], A.idx.data_ptr(), A.vals.data_ptr(),
+                A.strip_of.data_ptr(), C.heads.data_ptr(), C.segs.data_ptr(),
+                C.cuts.data_ptr(), x.data_ptr(), C.n_chunks, A.perrow,
+                part.data_ptr(), C.counter.data_ptr(), y.data_ptr(), stream)
+        else:
+            part = torch.empty(A.n_rows_pad * A.n_split if A.n_split > 1 else 0,
+                               dtype=x.dtype, device=dev)
+            rc = rows_fn(
+                _DTYPE_CODE[A.dtype], A.idx.data_ptr(), A.vals.data_ptr(),
+                A.strip_of.data_ptr(), A.rb_ptr_dev.data_ptr(), x.data_ptr(), n_rb,
+                A.n_split, A.perrow, part.data_ptr(), A.counter.data_ptr(),
+                y.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"strip_spmv: kernel launch failed with CUDA error {rc}")
     launches += 1
+    stream_launches += C is not None
     return y
 
 
@@ -220,12 +281,13 @@ def _strip_cuda(A: StripMatrix, x):
 # HBM3 at a 700.00 W power limit (PERF.md, "Cost constants"): matvec seconds
 # = STRIP_LAUNCH_S + padded pairs x ns per pair at the layout's perrow, in
 # f32. STRIP_LAUNCH_S is the time of the smallest layout (one superblock of
-# GROUP pairs); the ns per pair are fitted on the 48^3 level-2 A built at
-# each perrow. The kernel spreads every row block over blocks of about
-# SPLIT_PAIRS pairs, so its cost per pair does not depend on krb: the
-# planner's krb choice only trades GROUP padding, which the pair count holds.
-STRIP_NS_BY_PERROW = {1: 3.61, 2: 3.91, 4: 3.47, 8: 3.46, 16: 3.60}
-STRIP_LAUNCH_S = 7.14e-6
+# GROUP pairs, the rows path); the ns per pair are fitted on the 48^3
+# level-2 A built at each perrow (the rows path at perrow 1, the stream path
+# at 2-16, as the wrapper picks them). The ns per pair do not depend on krb:
+# the planner's krb choice only trades GROUP padding, which the pair count
+# holds.
+STRIP_NS_BY_PERROW = {1: 3.63, 2: 3.65, 4: 2.43, 8: 2.27, 16: 2.59}
+STRIP_LAUNCH_S = 7.07e-6
 
 
 def _plan(row, col, n, m, perrow):
