@@ -16,9 +16,13 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    values) <= 1e-5 for f32 and bf16 data, <= 1e-12 for f64; zero padding
    preserved exactly.
    - DIA: the 48^3 level-0 operator (7 diagonals), the wide-stencil level 1
-     (101 diagonals), a wide-offset band and a rectangular block with
+     (101 diagonals), a wide-offset band, a 300-diagonal band (more than
+     the tiled kernel takes by value) and a rectangular block with
      x_row0 > 0; plain SpMV, Jacobi sweep, Chebyshev scaled residual and
-     V-cycle residual.
+     V-cycle residual; in every configuration of the kernel's plan (its
+     pick, x through L1, x staged in shared memory, the row kernel), two
+     launches bit-equal and x, rhs and dinv given as views that are not
+     16-byte aligned bit-equal to the aligned call.
    - strip: the level-0 tentative prolongator Pt as the planner builds it
      and the level-2 A at every perrow (1, 2, 4, 8, 16); some case must
      have krb > 1.
@@ -43,12 +47,24 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
        in strip8 (inside SmoothedP/SmoothedR), the level-2 A in whichever of
        strip and strip8 the picker did not choose. Same golden check.
    Every kernel must have launched in phase 3, the strip and strip8
-   kernels on both of their paths.
+   kernels on both of their paths, the DIA kernel in both of its designs:
+   the tiled kernel for every operator of more than 8 diagonals (level 1),
+   the row kernel for the others (level 0), as its plan picks. The DIA
+   wrapper also counts its launches by (n_pad, ndiag, variant); those
+   counts must add up to its launches, and the timed solves' counts are
+   the launches per solve of phase 4.
 4. Times at the main path's shapes, by CUDA events over graph-replayed
-   calls: kernel, plain version, one cuSPARSE CSR product of the same
+   calls (an empty kernel replayed the same way gives the launch floor):
+   kernel, plain version, one cuSPARSE CSR product of the same
    operator as a yardstick, and the bound (bytes over memory rate vs
    operations over peak rate; bytes count the format's arrays the kernel
-   reads, x and y once each). A strip / strip8 layout is timed on the path
+   reads, x and y once each). The DIA kernel is timed at every shape the
+   solve launches it (levels 0 and 1 x SpMV, Chebyshev update, residual x
+   f32, f64) in its plan's pick, on both x paths and as the row kernel (one
+   thread per row, the design it replaced), with the host cost of a
+   launch and its launches per solve; the run fails if a shape is slower
+   than the row kernel by more than 5%. A strip / strip8
+   layout is timed on the path
    its wrapper picks and on the other one; the rows path is PR 2's kernel,
    so its time stands beside the new one. Every strip / strip8 operator of
    the f32 solve is timed with its launches per solve. Then the H100 cost
@@ -112,7 +128,8 @@ def graph_ms(fn, reps: int = 100, replays: int = 20) -> float:
     with torch.cuda.graph(g):
         for _ in range(reps):
             fn()
-    g.replay()
+    for _ in range(max(1, replays // 4)):     # warm: clocks up after host work
+        g.replay()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -176,7 +193,8 @@ def main_path_operators(info) -> dict:
     from saena_tpu_torch.amg.prolongation import tentative_prolongator
 
     Pt = tentative_prolongator(info.structs[0][0], info.sizes[1])
-    return {"L0_Pt": Pt, "L0_PtT": Pt.T.tocsr(), "L1_A": info.csr_levels[1],
+    return {"L0_A": info.csr_levels[0], "L0_Pt": Pt, "L0_PtT": Pt.T.tocsr(),
+            "L1_A": info.csr_levels[1],
             "L2_A": info.csr_levels[2]}
 
 
@@ -198,6 +216,10 @@ def kernel_cases(dev, ops):
 
     from saena_tpu_torch.ops.formats import dia_from_csr
 
+    def band(n, diags, seed):
+        return sp.diags([np.random.default_rng(seed + k).standard_normal(n - abs(d))
+                         for k, d in enumerate(diags)], diags, format="csr")
+
     cases = []
     A = _poisson_interior(M)
     D = dia_from_csr(A, torch.float64, dev)
@@ -206,12 +228,12 @@ def kernel_cases(dev, ops):
     D = dia_from_csr(A1, torch.float64, dev)
     cases.append((f"level1_{len(D.offsets)}diag", D.data, D.offsets, D.n_pad, 0,
                   A1.shape[0]))
-    n = 2000
-    diags = [0, 1, -1, 300, -300, 1500, -1500]
-    W = sp.diags([np.random.default_rng(k).standard_normal(n - abs(d))
-                  for k, d in enumerate(diags)], diags, format="csr")
-    D = dia_from_csr(W, torch.float64, dev)
-    cases.append(("band_wide", D.data, D.offsets, D.n_pad, 0, n))
+    D = dia_from_csr(band(2000, [0, 1, -1, 300, -300, 1500, -1500], 0),
+                     torch.float64, dev)
+    cases.append(("band_wide", D.data, D.offsets, D.n_pad, 0, 2000))
+    # more diagonals than the tiled kernel takes by value: the row kernel
+    D = dia_from_csr(band(3000, list(range(-150, 150)), 40), torch.float64, dev)
+    cases.append((f"band_{len(D.offsets)}diag", D.data, D.offsets, D.n_pad, 0, 3000))
     # rectangular row block of 4096 rows reading a halo-extended x
     # [256 halo | 4096 own | 128 halo]; offsets in extended coordinates, the
     # data dense so reads past either end of x hit the bounds check
@@ -222,15 +244,47 @@ def kernel_cases(dev, ops):
     return cases
 
 
+def dia_plans(offs, n_pad, dt, dev):
+    """[(label, plan)] of every configuration of the DIA kernel's plan for
+    the operator: the plan's own pick ("auto", what DiaMatrix holds), then
+    each other configuration the plan can take (x through L1, x staged in
+    shared memory, the row kernel), each distinct plan once."""
+    from saena_tpu_torch.ops import dia_spmv as dmod
+
+    sms = dmod.sm_count(dev)
+    out, seen = [], set()
+    for label in ("auto", *dmod.CONFIGS):
+        try:
+            plan = dmod.dia_plan(offs, n_pad, dt, sms,
+                                 config=None if label == "auto" else label)
+        except ValueError:
+            continue
+        key = json.dumps(plan.describe())
+        if key not in seen:
+            seen.add(key)
+            out.append((label, plan))
+    return out
+
+
+def unaligned(t):
+    """The same values as a view whose storage starts one element in (not
+    16-byte aligned)."""
+    store = t.new_empty(t.numel() + 1)
+    store[1:] = t
+    return store[1:]
+
+
 def check_kernels(dev, ops):
-    """DIA kernel vs plain for every case x variant x dtype; returns
-    (rows of (case, variant, dtype, scaled_err, max_abs_err), worst
-    failure or None)."""
+    """DIA kernel vs plain for every case x plan configuration x dtype x
+    variant; two launches must agree bit for bit, and x, rhs and dinv given
+    as views that are not 16-byte aligned must give the aligned call's bits.
+    Returns (rows of (case, config, variant, dtype, scaled_err,
+    max_abs_err), worst failure or None)."""
     import torch
 
     from saena_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_plain
 
-    rows, bad = [], None
+    rows, bad, configs = [], None, set()
     for case, data64, offs, m_pad, x_row0, n in kernel_cases(dev, ops):
         n_pad = data64.shape[1]
         rng = np.random.default_rng(len(case))
@@ -245,35 +299,56 @@ def check_kernels(dev, ops):
             cdt = torch.promote_types(ddt, torch.float32)
             data = data64.to(ddt)
             x, rhs, dinv = x64.to(cdt), rhs64.to(cdt), dinv64.to(cdt)
+            xu, rhsu, dinvu = unaligned(x), unaligned(rhs), unaligned(dinv)
             # |terms|: the same expression on absolute values, in f64
             acc_abs = dia_spmv_plain(data.abs().double(), x64.abs(), offs)
-            for vname, (has_rhs, has_dinv, c, add_x) in VARIANTS.items():
-                kw = dict(rhs=rhs if has_rhs else None,
-                          dinv=dinv if has_dinv else None, c=c, add_x=add_x,
-                          x_row0=x_row0)
-                yk = dia_spmv(data, x, offs, **kw)
-                yp = dia_spmv_plain(data, x, offs, **kw)
-                torch.cuda.synchronize()
-                scale = acc_abs
-                if has_rhs:
-                    scale = abs(c) * (rhs64.abs() + acc_abs)
-                    if has_dinv:
-                        scale = scale * dinv64.abs()
-                    if add_x:
-                        x0 = 128 * x_row0
-                        scale = scale + x64[x0:x0 + n_pad].abs()
-                diff = (yk.double() - yp.double()).abs()
-                err = float((diff / scale.clamp_min(1e-300)).max())
-                abs_err = float(diff.max())
-                pad_ok = bool((yk[n:] == 0).all()) if n < n_pad else True
-                ok = (yk.dtype == cdt and yk.shape == (n_pad,) and pad_ok
-                      and np.isfinite(err) and err <= TOL[dname])
-                rows.append((case, vname, dname, err, abs_err))
-                print(f"  {case:<16} {vname:<9} {dname:<9} scaled_err={err:.3e}"
-                      f" max_abs_err={abs_err:.3e} pad_zero={pad_ok}"
-                      f" {'ok' if ok else 'FAIL'}")
-                if not ok and bad is None:
-                    bad = f"{case}/{vname}/{dname}: err {err:.3e}, pad {pad_ok}"
+            for label, plan in dia_plans(offs, n_pad, ddt, dev):
+                configs.add(f"{plan.config}/G{'>1' if plan.groups > 1 else '1'}")
+                worst = (0.0, 0.0)
+                ok_all = True
+                for vname, (has_rhs, has_dinv, c, add_x) in VARIANTS.items():
+                    kw = dict(c=c, add_x=add_x, x_row0=x_row0, plan=plan)
+                    yk = dia_spmv(data, x, offs, rhs=rhs if has_rhs else None,
+                                  dinv=dinv if has_dinv else None, **kw)
+                    same = torch.equal(yk, dia_spmv(
+                        data, x, offs, rhs=rhs if has_rhs else None,
+                        dinv=dinv if has_dinv else None, **kw))
+                    same_u = torch.equal(yk, dia_spmv(
+                        data, xu, offs, rhs=rhsu if has_rhs else None,
+                        dinv=dinvu if has_dinv else None, **kw))
+                    kw.pop("plan")
+                    yp = dia_spmv_plain(data, x, offs, rhs=rhs if has_rhs else None,
+                                        dinv=dinv if has_dinv else None, **kw)
+                    torch.cuda.synchronize()
+                    scale = acc_abs
+                    if has_rhs:
+                        scale = abs(c) * (rhs64.abs() + acc_abs)
+                        if has_dinv:
+                            scale = scale * dinv64.abs()
+                        if add_x:
+                            x0 = 128 * x_row0
+                            scale = scale + x64[x0:x0 + n_pad].abs()
+                    diff = (yk.double() - yp.double()).abs()
+                    err = float((diff / scale.clamp_min(1e-300)).max())
+                    abs_err = float(diff.max())
+                    pad_ok = bool((yk[n:] == 0).all()) if n < n_pad else True
+                    ok = (yk.dtype == cdt and yk.shape == (n_pad,) and pad_ok
+                          and same and same_u and np.isfinite(err)
+                          and err <= TOL[dname])
+                    rows.append((case, label, vname, dname, err, abs_err))
+                    worst = max(worst, (err, abs_err))
+                    ok_all = ok_all and ok
+                    if not ok and bad is None:
+                        bad = (f"{case}/{label}/{vname}/{dname}: err {err:.3e}, pad "
+                               f"{pad_ok}, runs equal {same}, unaligned equal {same_u}")
+                p = plan.describe()
+                print(f"  {case:<16} {label:<5} {dname:<9} {plan.config:<4} "
+                      f"G={p['groups']} W={p['row_warps']} grid={p['grid']} "
+                      f"worst scaled_err={worst[0]:.3e} "
+                      f"max_abs_err={worst[1]:.3e} {'ok' if ok_all else 'FAIL'}")
+    need = {"l1/G1", "l1/G>1", "smem/G1", "smem/G>1", "rows/G1"}
+    if bad is None and not need <= configs:
+        bad = f"configurations not checked: {sorted(need - configs)}"
     return rows, bad
 
 
@@ -470,15 +545,22 @@ def run_solve(solver, dev, golden, label):
     import torch
 
     from saena_tpu_torch import generators
+    from saena_tpu_torch.ops import dia_spmv as dmod
 
     solver.solve_pCG()                                   # warm solve
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    before, n0 = dict(dmod.shape_launches), dmod.launches
     e0.record()
     u, res = solver.solve_pCG()
     e1.record()
     torch.cuda.synchronize()
+    # the DIA kernel's launches in the timed solve, by shape, from the
+    # wrapper's own counter
+    per_shape = {f"{k[0]}x{k[1]} {k[2]}": v - before.get(k, 0)
+                 for k, v in sorted(dmod.shape_launches.items())
+                 if v > before.get(k, 0)}
     it = res.iters
     rel = float(res.rel_res)
     hist = res.history[: it + 1].cpu().numpy()
@@ -489,8 +571,11 @@ def run_solve(solver, dev, golden, label):
            "formats": level_formats(solver.hierarchy), "iters": it,
            "rel_res": rel, "true_res": float(res.true_res),
            "max_err_vs_solution": err, "solve_ms": e0.elapsed_time(e1),
-           "all_tensors_on_card": on_card}
+           "all_tensors_on_card": on_card, "dia_launches_per_solve": per_shape}
     print("  " + json.dumps(rep))
+    if sum(per_shape.values()) != dmod.launches - n0:
+        return rep, (f"DIA launches by shape {per_shape} do not add up to the "
+                     f"{dmod.launches - n0} launches of the solve")
     if not on_card:
         return rep, "a hierarchy tensor is not on the card"
     if not np.isfinite(u).all():
@@ -592,55 +677,108 @@ def pick_estimates(info, H, dtype) -> list:
 # ---------------------------------------------------------- phase 4: times --
 
 
-def time_level0(dev):
-    """DIA kernel / plain / cuSPARSE ms at the 48^3 level-0 shapes. Returns
-    rows of dicts."""
+# K1's times before the tiled kernel (µs, f32, graph-replayed; PERF.md §6,
+# NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's times of the
+# row kernel, K1's "rows" configuration, which they were taken of
+BEFORE_US = {("L0", "spmv"): 2.334, ("L0", "cheb"): 2.680, ("L1", "spmv"): 11.46}
+
+
+def time_dia(dev, ops, per_shape: dict) -> list:
+    """DIA kernel ms at every shape of the main path (L0 and L1 x spmv,
+    Chebyshev update, residual x f32, f64): the plan's pick (``ms``), the
+    row kernel (``rows_ms``), both x paths of the tiled kernel (``l1_ms``,
+    ``smem_ms``), the plain version, one cuSPARSE CSR product for the
+    SpMV, the bound, and launches per solve from ``per_shape`` ({dtype
+    name: {"<n_pad>x<ndiag> <variant>": launches}}, the phase-3 solves).
+    Returns rows of dicts."""
     import torch
 
-    from saena_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_plain
-    from saena_tpu_torch.ops.formats import dia_from_csr, pad_to
+    from saena_tpu_torch.ops import dia_spmv as dmod
+    from saena_tpu_torch.ops.formats import dia_from_csr
 
-    A = _poisson_interior(M)
-    n, n_pad = A.shape[0], pad_to(A.shape[0])
-    rng = np.random.default_rng(5)
     rows = []
-    for dname in ("float32", "float64"):
-        dt = getattr(torch, dname)
-        D = dia_from_csr(A, dt, dev)
-        x = torch.tensor(np.pad(rng.standard_normal(n), (0, n_pad - n)),
-                         dtype=dt, device=dev)
-        rhs = torch.tensor(np.pad(rng.standard_normal(n), (0, n_pad - n)),
-                           dtype=dt, device=dev)
-        dinv = torch.tensor(np.pad(1.0 / A.diagonal(), (0, n_pad - n)),
-                            dtype=dt, device=dev)
-        Acsr = csr_on_card(A, dt, dev, n_pad, n_pad)
-        isz = D.data.element_size()
-        nd = len(D.offsets)
-        for vname in ("spmv", "cheb"):
-            has_rhs, has_dinv, c, add_x = VARIANTS[vname]
-            kw = dict(rhs=rhs if has_rhs else None,
-                      dinv=dinv if has_dinv else None, c=c, add_x=add_x)
-            # bytes the function must move: data once, x once, rhs/dinv
-            # once, y written once; operations: a multiply-add per stored
-            # element plus the epilogue's 3 per row
-            nvec = 2 + has_rhs + has_dinv
-            nbytes = (nd * isz + nvec * isz) * n_pad
-            flops = (2 * nd + 3 * has_rhs) * n_pad
-            b_ms, b_by = bound(nbytes, flops, dname)
-            r = {"kernel": "dia_spmv", "shape": f"L0 {nd}x{n_pad}",
-                 "dtype": dname, "variant": vname,
-                 "ms": graph_ms(lambda: dia_spmv(D.data, x, D.offsets,
-                                                 offsets_dev=D.offsets_dev, **kw)),
-                 "eager_ms": eager_ms(lambda: dia_spmv(
-                     D.data, x, D.offsets, offsets_dev=D.offsets_dev, **kw)),
-                 "plain_ms": graph_ms(lambda: dia_spmv_plain(D.data, x,
-                                                             D.offsets, **kw)),
-                 "library_ms": graph_ms(lambda: Acsr @ x)
-                 if vname == "spmv" else None,
-                 "bound_ms": b_ms, "bound_by": b_by,
-                 "bytes": nbytes, "flops": flops}
-            rows.append(r)
-            print("  " + json.dumps(r))
+    for lname, A in (("L0", ops["L0_A"]), ("L1", ops["L1_A"])):
+        n = A.shape[0]
+        for dname in ("float32", "float64"):
+            dt = getattr(torch, dname)
+            D = dia_from_csr(A, dt, dev)
+            n_pad, nd = D.n_pad, len(D.offsets)
+            rng = np.random.default_rng(5)
+            x, rhs = (torch.tensor(np.pad(rng.standard_normal(n), (0, n_pad - n)),
+                                   dtype=dt, device=dev) for _ in range(2))
+            dinv = torch.tensor(np.pad(1.0 / A.diagonal(), (0, n_pad - n)),
+                                dtype=dt, device=dev)
+            Acsr = csr_on_card(A, dt, dev, n_pad, n_pad)
+            plans = {}
+            for cfg in dmod.CONFIGS:
+                try:
+                    plans[cfg] = dmod.dia_plan(D.offsets, n_pad, dt,
+                                               dmod.sm_count(dev), config=cfg)
+                except ValueError:           # x windows too large to stage
+                    pass
+            auto = D.plan if D.plan is not None else dmod.dia_plan(
+                D.offsets, n_pad, dt, dmod.sm_count(dev))             # card / CPU
+            isz = D.data.element_size()
+            for vname in ("spmv", "cheb", "residual"):
+                has_rhs, has_dinv, c, add_x = VARIANTS[vname]
+                kw = dict(rhs=rhs if has_rhs else None,
+                          dinv=dinv if has_dinv else None, c=c, add_x=add_x)
+                # bytes the function must move: data once, x once, rhs/dinv
+                # once, y written once; operations: a multiply-add per stored
+                # element plus the epilogue's 3 per row
+                nvec = 2 + has_rhs + has_dinv
+                nbytes = (nd * isz + nvec * isz) * n_pad
+                flops = (2 * nd + 3 * has_rhs) * n_pad
+                b_ms, b_by = bound(nbytes, flops, dname)
+                run = lambda plan: (lambda: dmod.dia_spmv(
+                    D.data, x, D.offsets, offsets_dev=D.offsets_dev, plan=plan, **kw))
+                # the plan's pick and the row kernel in turns (new, rows, rows,
+                # new), the lesser of each pair
+                t = [graph_ms(run(p)) for p in (auto, plans["rows"], plans["rows"], auto)]
+                r = {"kernel": "dia_spmv", "shape": f"{lname} {nd}x{n_pad}",
+                     "dtype": dname, "variant": vname, "plan": auto.describe(),
+                     "ms": min(t[0], t[3]), "rows_ms": min(t[1], t[2]),
+                     "before_us_f32": BEFORE_US.get((lname, vname)) if dname == "float32"
+                     else None}
+                for cfg in ("l1", "smem"):
+                    if cfg in plans:
+                        r[f"{cfg}_ms"] = (r["ms"] if plans[cfg].describe() == r["plan"]
+                                          else graph_ms(run(plans[cfg])))
+                if nd <= dmod.CHUNK and vname == "spmv":
+                    # the tiled kernel with one diagonal group: every
+                    # row-warp count, and x as an unaligned view (scalar loads)
+                    r["row_warps_ms"] = {
+                        f"W{w}": graph_ms(run(dmod.dia_plan(
+                            D.offsets, n_pad, dt, dmod.sm_count(dev), row_warps=w)))
+                        for w in (1, 2, 4, 8)}
+                    r["groups_ms"] = {
+                        f"l1/G{g}": graph_ms(run(dmod.dia_plan(
+                            D.offsets, n_pad, dt, dmod.sm_count(dev), groups=g)))
+                        for g in range(2, min(nd, 4) + 1)}
+                    xu = unaligned(x)
+                    r["scalar_x_ms"] = graph_ms(lambda: dmod.dia_spmv(
+                        D.data, xu, D.offsets, plan=plans["l1"]))
+                    # a copy of x, the least a kernel over these rows costs
+                    y = torch.empty_like(x)
+                    r["x_copy_ms"] = graph_ms(lambda: y.copy_(x))
+                if dmod.CHUNK < nd <= dmod.MAX_DIAGS and vname == "spmv":
+                    # the tiled kernel at every group count, both x paths
+                    r["groups_ms"] = {
+                        f"{cfg}/G{g}": graph_ms(run(dmod.dia_plan(
+                            D.offsets, n_pad, dt, dmod.sm_count(dev), config=cfg,
+                            groups=g)))
+                        for cfg in ("l1", "smem") for g in range(1, dmod.MAX_GROUPS + 1)}
+                r["eager_ms"] = eager_ms(run(auto))
+                r["rows_eager_ms"] = eager_ms(run(plans["rows"]))
+                r["plain_ms"] = graph_ms(lambda: dmod.dia_spmv_plain(
+                    D.data, x, D.offsets, **kw), reps=10, replays=5)
+                r["library_ms"] = graph_ms(lambda: Acsr @ x) if vname == "spmv" else None
+                r.update(bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / r["ms"],
+                         rows_share_of_bound=b_ms / r["rows_ms"],
+                         vs_rows=r["ms"] / r["rows_ms"], bytes=nbytes, flops=flops,
+                         launches_per_solve=per_shape[dname].get(f"{n_pad}x{nd} {vname}", 0))
+                rows.append(r)
+                print("  " + json.dumps(r))
     return rows
 
 
@@ -653,35 +791,6 @@ def csr_on_card(A, dt, dev, n_rows_pad, n_cols_pad):
         torch.tensor(crow, dtype=torch.int64, device=dev),
         torch.tensor(A.indices, dtype=torch.int64, device=dev),
         torch.tensor(A.data, dtype=dt, device=dev), size=(n_rows_pad, n_cols_pad))
-
-
-def time_wide_dia(dev, A1):
-    """DIA kernel / plain / cuSPARSE ms at the level-1 wide-stencil shape."""
-    import torch
-
-    from saena_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_plain
-    from saena_tpu_torch.ops.formats import dia_from_csr
-
-    D = dia_from_csr(A1, torch.float32, dev)
-    n, n_pad = A1.shape[0], D.n_pad
-    x = torch.tensor(np.pad(np.random.default_rng(6).standard_normal(n),
-                            (0, n_pad - n)), dtype=torch.float32, device=dev)
-    Acsr = csr_on_card(A1, torch.float32, dev, n_pad, n_pad)
-    nd = len(D.offsets)
-    nbytes = (nd + 2) * 4 * n_pad
-    flops = 2 * nd * n_pad
-    b_ms, b_by = bound(nbytes, flops, "float32")
-    r = {"kernel": "dia_spmv", "shape": f"L1 {nd}x{n_pad}", "dtype": "float32",
-         "variant": "spmv",
-         "ms": graph_ms(lambda: dia_spmv(D.data, x, D.offsets,
-                                         offsets_dev=D.offsets_dev)),
-         "plain_ms": graph_ms(lambda: dia_spmv_plain(D.data, x, D.offsets),
-                              reps=10, replays=5),
-         "library_ms": graph_ms(lambda: Acsr @ x),
-         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
-         "fill": A1.nnz / (nd * n)}
-    print("  " + json.dumps(r))
-    return r
 
 
 def gather_bytes(kind, Mx) -> int:
@@ -898,13 +1007,29 @@ def main() -> int:
         for mod in counters.values():
             mod.launches = 0
         s1_mod.stream_launches = s8_mod.stream_launches = 0
+        dia_mod.rows_launches = 0
+        dia_mod.shape_launches.clear()
 
     def read():
+        """(launches by kernel and path, failure or None): the DIA kernel's
+        launches by shape must add up to its launches, and the row kernel
+        must carry exactly those of operators of at most CHUNK diagonals."""
         out = {k: mod.launches for k, mod in counters.items()}
         for k, mod in (("strip_spmv", s1_mod), ("strip8_spmv", s8_mod)):
             out[f"{k}/stream"] = mod.stream_launches
             out[f"{k}/rows"] = mod.launches - mod.stream_launches
-        return out
+        out["dia_spmv/tiled"] = dia_mod.launches - dia_mod.rows_launches
+        out["dia_spmv/rows"] = dia_mod.rows_launches
+        shapes = dia_mod.shape_launches
+        narrow = sum(v for (_, nd, _), v in shapes.items() if nd <= dia_mod.CHUNK)
+        bad = None
+        if sum(shapes.values()) != dia_mod.launches:
+            bad = (f"DIA launches by shape ({sum(shapes.values())}) do not add up "
+                   f"to its {dia_mod.launches} launches")
+        elif dia_mod.rows_launches != narrow:
+            bad = (f"{dia_mod.rows_launches} DIA launches took the row kernel, "
+                   f"{narrow} were of operators of at most {dia_mod.CHUNK} diagonals")
+        return out, bad
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -920,6 +1045,11 @@ def main() -> int:
         spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill stores", log))
         print(f"    {name}: {len(regs)} kernel instantiations, at most "
               f"{max(regs, default=0)} registers, {spills} bytes spilled")
+        for fn, sp in re.findall(r"entry function '(\w+)'[^\n]*\n(?:.*Function "
+                                 r"properties.*\n)?\s*\d+ bytes stack frame, (\d+) "
+                                 r"bytes spill stores", log):
+            if int(sp):
+                print(f"      {sp} bytes spilled by {fn}")
     with open(os.path.join(ROOT, "tests", "goldens", "convergence.json")) as f:
         golden = json.load(f)[GOLDEN]
     t0 = time.perf_counter()
@@ -946,17 +1076,21 @@ def main() -> int:
     print(f"[3a] main path f64, {M}^3, the card's picks (golden {GOLDEN})")
     zero()
     solver64, rep64, bad = solve_main_path(dev, torch.float64, golden)
-    launches_a64 = read()
-    if bad:
-        return fail(f"f64 main path: {bad}")
+    launches_a64, bad_count = read()
+    if bad or bad_count:
+        return fail(f"f64 main path: {bad or bad_count}")
     if solver64.info.formats[1] != "DiaMatrix":
         return fail(f"level 1 is {solver64.info.formats[1]}, not wide DIA")
     print(f"[3a] main path f32, {M}^3")
     zero()
     solver32, rep32, bad = solve_main_path(dev, torch.float32, None)
-    launches_a32 = read()
-    if bad:
-        return fail(f"f32 main path: {bad}")
+    launches_a32, bad_count = read()
+    if bad or bad_count:
+        return fail(f"f32 main path: {bad or bad_count}")
+    per_shape = {"float64": rep64["dia_launches_per_solve"],
+                 "float32": rep32["dia_launches_per_solve"]}
+    print("[3a] DIA launches per solve by n_pad x ndiag, variant: "
+          + json.dumps(per_shape))
     print(f"[3a] launches: f64 {launches_a64}, f32 {launches_a32}")
     est = pick_estimates(solver32.info, solver32.hierarchy, torch.float32)
     print("[3a] picker estimates (f32, µs): " + json.dumps(est))
@@ -964,9 +1098,9 @@ def main() -> int:
     solver64.hierarchy = forced_hierarchy(solver64)
     zero()
     rep_b, bad = run_solve(solver64, dev, golden, "forced")
-    launches_b = read()
-    if bad:
-        return fail(f"forced main path: {bad}")
+    launches_b, bad_count = read()
+    if bad or bad_count:
+        return fail(f"forced main path: {bad or bad_count}")
     print(f"[3b] launches: {launches_b}")
     launches = {k: launches_a64[k] + launches_a32[k] + launches_b[k]
                 for k in launches_b}
@@ -976,8 +1110,15 @@ def main() -> int:
 
     # ---- 4. times
     print("[4] times (ms per call; bound = max(bytes/HBM, ops/peak))")
-    times = time_level0(dev)
-    wide = time_wide_dia(dev, ops["L1_A"])
+    floor = graph_ms(lambda: dia_mod.empty_launch(dev))
+    print(f"  launch floor (empty kernel, graph-replayed): {floor * 1e3:.3f} µs")
+    times = time_dia(dev, ops, per_shape)
+    slow = [f"{r['shape']} {r['dtype']} {r['variant']}: {r['vs_rows']:.3f}x"
+            for r in times if r["vs_rows"] > 1.05]
+    print("[4] K1 against the row kernel, same run: "
+          + (f"slower beyond 5% on {slow}" if slow else "no shape slower beyond 5%"))
+    if min(r["launches_per_solve"] for r in times) <= 0:
+        return fail("a K1 shape of phase 4 never launched in the phase-3 solves")
     grows = []
     for case, (kind, M64, A_host) in cases.items():
         if case.startswith(("L0_", "L2_A_")) and "chunk" not in case:
@@ -994,10 +1135,14 @@ def main() -> int:
     consts = fit_constants(dev, ops, grows)
     print("[4] fitted cost constants: " + json.dumps(consts))
     print(f"[4] total {time.perf_counter() - t_start:.1f} s")
+    if slow:
+        return fail(f"K1 slower than the row kernel by more than 5%: {slow}")
 
-    head = next(r for r in times if r["dtype"] == "float32" and r["variant"] == "spmv")
-    head_err = max(e for case, v, d, _, e in checks
-                   if case == f"poisson{M}" and v == "spmv" and d == "float32")
+    head = next(r for r in times if r["shape"].startswith("L0")
+                and r["dtype"] == "float32" and r["variant"] == "spmv")
+    head_err = max(e for case, cfg, v, d, _, e in checks
+                   if case == f"poisson{M}" and cfg == "auto" and v == "spmv"
+                   and d == "float32")
     gerr = {c: max(e for c2, _, d, _, e in gchecks if c2 == c and d == "float32")
             for c, *_ in gchecks}
     grow = {r["case"]: r for r in grows}

@@ -37,7 +37,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from saena_tpu_torch.ops.dia_spmv import dia_spmv
+from saena_tpu_torch.ops.dia_spmv import dia_plan, dia_spmv, sm_count
 
 PAD = 128  # alignment of every device vector and row dimension
 
@@ -120,6 +120,10 @@ class DiaMatrix:
         # the offsets once more on the device, so a launch copies nothing
         self.offsets_dev = torch.tensor(self.offsets, dtype=torch.int64,
                                         device=data.device)
+        # and the kernel's launch plan for this card (ops/dia_spmv.py)
+        self.plan = (dia_plan(self.offsets, data.shape[1], data.dtype,
+                              sm_count(data.device))
+                     if data.device.type == "cuda" else None)
         self.shape, self.nnz = tuple(shape), int(nnz)
 
     @property
@@ -136,13 +140,14 @@ class DiaMatrix:
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """A @ x at the compute dtype promote(dtype, f32)."""
-        return dia_spmv(self.data, x, self.offsets, offsets_dev=self.offsets_dev)
+        return dia_spmv(self.data, x, self.offsets, offsets_dev=self.offsets_dev,
+                        plan=self.plan)
 
     def fused_update(self, x, rhs, dinv=None, c: float = 1.0,
                      add_x: bool = True) -> torch.Tensor:
         """y = [x +] c * [dinv *] (rhs - A@x) in one kernel pass."""
         return dia_spmv(self.data, x, self.offsets, rhs=rhs, dinv=dinv, c=c,
-                        add_x=add_x, offsets_dev=self.offsets_dev)
+                        add_x=add_x, offsets_dev=self.offsets_dev, plan=self.plan)
 
 
 class DenseMatrix:

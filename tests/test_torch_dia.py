@@ -5,7 +5,10 @@
 - plain version vs the Pallas kernel in interpret mode in f32, as
   tests/test_dia_spmv.py runs it: rtol/atol 2e-5 (f32 rounding);
 - the CUDA kernel vs the plain version on a card (skips without one):
-  row-sum-scaled error 1e-5 in f32, 1e-12 in f64 (FMA contraction).
+  row-sum-scaled error 1e-5 in f32, 1e-12 in f64 (FMA contraction), in
+  every configuration of its plan (ops/dia_spmv.dia_plan), two launches
+  bit-equal, and x, rhs and dinv as views that are not 16-byte aligned
+  bit-equal to the aligned call.
 """
 import types
 
@@ -19,6 +22,7 @@ from saena_tpu_torch.generators import band_matrix, laplacian3D
 from saena_tpu_torch.ops import dia_spmv as dmod
 from saena_tpu_torch.ops import formats as tf
 from saena_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_plain
+from test_torch_dia_plan import L1_OFFSETS
 
 
 @pytest.fixture(scope="module")
@@ -39,10 +43,13 @@ def _poisson(m):
     return remove_boundary_nodes(laplacian3D(m, m, m))[0]
 
 
+def _diags(n, offsets, seed):
+    return sp.diags([np.random.default_rng(seed + k).standard_normal(n - abs(d))
+                     for k, d in enumerate(offsets)], offsets, format="csr")
+
+
 def _wide(n=2000):
-    diags = [0, 1, -1, 300, -300, 1500, -1500]
-    return sp.diags([np.random.default_rng(k).standard_normal(n - abs(d))
-                     for k, d in enumerate(diags)], diags, format="csr")
+    return _diags(n, [0, 1, -1, 300, -300, 1500, -1500], 0)
 
 
 MATRICES = {
@@ -184,16 +191,40 @@ def test_wrapper_raises_on_other_devices():
         dia_spmv(data, torch.zeros(128, device="meta"), (0,))
 
 
+CUDA_CASES = {
+    "wide_offsets": _wide,
+    "clustered101": lambda: _diags(9000, L1_OFFSETS, 20),
+    "band300": lambda: _diags(3000, tuple(range(-150, 150)), 40),
+}
+
+
+def _unaligned(t):
+    """The same values as a view whose storage starts one element in."""
+    store = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    store[1:] = t
+    return store[1:]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("config", ["auto", "l1", "l1_groups3", "smem", "rows"])
+@pytest.mark.parametrize("case", sorted(CUDA_CASES))
 @pytest.mark.parametrize("dname", ["float32", "bfloat16", "float64"])
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
-def test_cuda_kernel_matches_plain(variant, dname):
+def test_cuda_kernel_matches_plain(variant, dname, case, config):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     has_rhs, has_dinv, c, add_x = VARIANTS[variant]
-    A = _wide()
+    A = CUDA_CASES[case]()
     ddt = getattr(torch, dname)
     D = tf.dia_from_csr(A, ddt, "cuda")
+    if len(D.offsets) > dmod.MAX_DIAGS and config not in ("auto", "rows"):
+        pytest.skip(f"{len(D.offsets)} diagonals take the row kernel only")
+    if config == "auto":
+        plan = D.plan
+    else:
+        cfg, _, g = config.partition("_groups")
+        plan = dmod.dia_plan(D.offsets, D.n_pad, ddt, dmod.sm_count("cuda"),
+                             config=cfg, groups=int(g) if g else None)
     cdt = torch.promote_types(ddt, torch.float32)
     n = A.shape[0]
     x, rhs, dinv = (torch.from_numpy(v).to("cuda", cdt) for v in
@@ -201,9 +232,14 @@ def test_cuda_kernel_matches_plain(variant, dname):
     kw = dict(rhs=rhs if has_rhs else None, dinv=dinv if has_dinv else None,
               c=c, add_x=add_x)
     before = dmod.launches
-    yk = dia_spmv(D.data, x, D.offsets, **kw)
+    yk = dia_spmv(D.data, x, D.offsets, plan=plan, **kw)
     torch.cuda.synchronize()
     assert dmod.launches == before + 1
+    assert torch.equal(yk, dia_spmv(D.data, x, D.offsets, plan=plan, **kw))
+    kw_u = dict(kw, rhs=_unaligned(rhs) if has_rhs else None,
+                dinv=_unaligned(dinv) if has_dinv else None)
+    assert torch.equal(yk, dia_spmv(D.data, _unaligned(x), D.offsets, plan=plan,
+                                    **kw_u))
     yp = dia_spmv_plain(D.data, x, D.offsets, **kw)
     scale = dia_spmv_plain(D.data.abs().double(), x.abs().double(), D.offsets)
     if has_rhs:
