@@ -9,7 +9,8 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    every CUDA kernel of the port from saena_tpu_torch/csrc/ (DIA, strip,
    strip8), all nvcc processes started together. Then the host levels of the
    48^3 Poisson interior (the poisson3d_48 golden's levels), whose operators
-   give the kernels their main-path shapes.
+   give the kernels their main-path shapes. The native host kernels of the
+   setup (saena_tpu_torch/_native, g++) must build and load.
 2. Each kernel against its plain PyTorch version on the card, in f32 and
    f64 (the DIA kernel also with bf16 data). Tolerance: row-sum-scaled
    error (|kernel - plain| over the same expression evaluated on absolute
@@ -27,7 +28,8 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
      and the level-2 A at every perrow (1, 2, 4, 8, 16); some case must
      have krb > 1.
    - strip8: Pt^T of level 0 as the planner builds it, the level-2 A at
-     every perrow (1, 2, 4) and a synthetic interval-mode layout whose last
+     every perrow (1, 2, 4) in general and in interval mode (the port's
+     native planner) and a synthetic interval-mode layout whose last
      tile's strip base reaches past the last strip of x.
    - both: an operator of one real pair / tile, and layouts cut into small
      chunks so that row blocks are cut (unit counts no multiple of the
@@ -37,8 +39,9 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
 3. The main path on the card, launch counters zeroed just before each run
    and read just after:
    (a) the 48^3 Poisson pCG solve through Matrix/AMG
-       (Options(remove_boundary=True)) with the formats the port's picker
-       chooses on the card. f64 must reproduce the poisson3d_48 golden
+       (Options(remove_boundary=True), so the default shard-parallel host
+       setup) with the formats the port's picker chooses on the card. f64
+       must reproduce the poisson3d_48 golden
        (tests/goldens/convergence.json: levels, iterations, residual history
        at rtol 1e-6) with wide DIA at level 1; f32 must reach rel_res < 1e-8
        within 100 iterations.
@@ -46,13 +49,31 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
        chosen here by the port's own builders: every Pt in strip, every Pt^T
        in strip8 (inside SmoothedP/SmoothedR), the level-2 A in whichever of
        strip and strip8 the picker did not choose. Same golden check.
+   (c) the 48^3 setup on the card's host, default (setup_shards=-1, shard-
+       parallel) and serial (setup_shards=0): wall seconds and phases, the
+       shard count, the setup wire volume, whether the native library was
+       used (it must be), and every host level, P and R of the two setups
+       equal bit for bit.
+   (d) the other entry points on the phase-(a) hierarchies, f64 and f32:
+       solve and solve_pGMRES to 1e-8, solve_CG, solve_smoother and
+       solve_GMRES(precondition=False) for 30 iterations; ms by CUDA events
+       after a warm call, and the kernels' launches. The f64 runs are held
+       against the port's own CPU f64 runs of the same entry points (a
+       hierarchy devicified on the CPU from the same host levels): equal
+       iteration counts, histories at rtol 1e-6.
+   (e) lazy updates on the card, f64: update1 (A x 1.5), update2 (a shifted
+       diagonal), update3 (three diagonal entries), a pCG solve after each,
+       held against the same sequence on that CPU hierarchy (equal
+       iterations, histories at rtol 1e-6); update1 must reuse every level
+       below 0, the eig values and the coarse LU.
    Every kernel must have launched in phase 3, the strip and strip8
    kernels on both of their paths, the DIA kernel in both of its designs:
    the tiled kernel for every operator of more than 8 diagonals (level 1),
    the row kernel for the others (level 0), as its plan picks. The DIA
    wrapper also counts its launches by (n_pad, ndiag, variant); those
    counts must add up to its launches, and the timed solves' counts are
-   the launches per solve of phase 4.
+   the launches per solve of phase 4. The strip8 wrapper also counts its
+   launches on interval-mode layouts.
 4. Times at the main path's shapes, by CUDA events over graph-replayed
    calls (an empty kernel replayed the same way gives the launch floor):
    kernel, plain version, one cuSPARSE CSR product of the same
@@ -66,8 +87,9 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    than the row kernel by more than 5%. A strip / strip8
    layout is timed on the path
    its wrapper picks and on the other one; the rows path is PR 2's kernel,
-   so its time stands beside the new one. Every strip / strip8 operator of
-   the f32 solve is timed with its launches per solve. Then the H100 cost
+   so its time stands beside the new one, with its launches in one picker
+   and one forced solve of phase 3. Every strip / strip8 operator of the
+   f32 solve is timed with its launches per solve. Then the H100 cost
    constants of the format picker, fitted from these times.
 
 The second-to-last line is one JSON object listing every ported kernel; the
@@ -81,6 +103,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -442,6 +465,9 @@ def gather_cases(dev, ops):
     for pr in (1, 2, 4):
         cases[f"L2_A_strip8_pr{pr}"] = (
             "strip8", strip8_from_csr(A2, f64, dev, perrow=pr), A2)
+        cases[f"L2_A_strip8i_pr{pr}"] = (
+            "strip8", strip8_from_csr(A2, f64, dev, perrow=pr, mode="interval"),
+            A2)
     interval = synthetic_interval(dev, 16, 3, 10, 2, 3)
     cases["interval_edge"] = ("strip8", interval, None)
     cases["interval_edge_chunk2"] = ("strip8", rechunked(interval, 2), None)
@@ -672,6 +698,233 @@ def pick_estimates(info, H, dtype) -> list:
                                + gather_time_estimate(R, dtype))
         out.append(row)
     return out
+
+
+# ------------------------------- phase 3c-3e: host setup, entry points, updates --
+
+
+def host_levels_differ(i1, i2):
+    """None when every level, P and R of two SetupInfos agree bit for bit
+    (indptr, indices, data), else what differs first."""
+    if i1.sizes != i2.sizes:
+        return f"levels {i1.sizes} != {i2.sizes}"
+    for name, As, Bs in (("A", i1.csr_levels, i2.csr_levels),
+                         ("P", i1.Ps, i2.Ps), ("R", i1.Rs, i2.Rs)):
+        if len(As) != len(Bs):
+            return f"{name}: {len(As)} != {len(Bs)} operators"
+        for l, (X, Y) in enumerate(zip(As, Bs)):
+            for attr in ("indptr", "indices"):
+                if not np.array_equal(getattr(X, attr), getattr(Y, attr)):
+                    return f"{name}{l} {attr} differs"
+            if X.data.shape != Y.data.shape or \
+                    X.data.astype(np.float64).tobytes() != Y.data.astype(np.float64).tobytes():
+                return f"{name}{l} data differs"
+    return None
+
+
+def setup_on_host(dev):
+    """The 48^3 f64 setup on the card's host through Matrix/AMG, default
+    (setup_shards=-1) and serial (setup_shards=0). Returns (report, failure
+    or None)."""
+    import torch
+
+    from saena_tpu_torch import AMG, Matrix, Options, generators
+    from saena_tpu_torch.amg.hierarchy import _setup_workers
+    from saena_tpu_torch.parallel.dist_setup import default_shards
+
+    A = Matrix()
+    A.set_csr(generators.laplacian3D(M, M, M))
+    A.assemble(device=dev, dtype=torch.float64)
+    rep = {"cpu_count": os.cpu_count(), "torch_threads": torch.get_num_threads(),
+           "setup_workers": _setup_workers(), "default_shards": default_shards(),
+           "OMP_WAIT_POLICY": os.environ.get("OMP_WAIT_POLICY")}
+    print("  host: " + json.dumps(rep))
+    infos = {}
+    for label, shards in (("default", -1), ("serial", 0), ("default_again", -1)):
+        s = AMG(device=dev, dtype=torch.float64)
+        t0 = time.perf_counter()
+        s.set_matrix(A, Options(remove_boundary=True, setup_shards=shards))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        info = infos[label] = s.info
+        rep[label] = {"setup_shards": shards, "wall_s": wall,
+                      "phases_s": {k: round(v, 3) for k, v in info.phases.items()},
+                      "n_shards": info.n_shards, "native": info.native,
+                      "upload_bytes": info.upload_bytes,
+                      "comm_bytes": None if info.comm is None else info.comm.total_bytes,
+                      "dist_levels": None if info.comm is None else info.comm.dist_levels}
+        print(f"  {label}: " + json.dumps(rep[label]))
+        if info.comm is not None:
+            print("    " + info.comm.table().replace("\n", "\n    "))
+    print("  " + infos["default"].table().replace("\n", "\n  "))
+    bad = None
+    if not all(i.native for i in infos.values()):
+        bad = "the native host kernels were not used"
+    else:
+        diff = host_levels_differ(infos["default"], infos["serial"])
+        if diff:
+            bad = f"default and serial setups differ: {diff}"
+    return rep, bad
+
+
+# entry points of phase 3d: (AMG method, keyword arguments)
+ENTRY_POINTS = (("solve", {}), ("solve_pGMRES", {}),
+                ("solve_CG", {"max_iter": 30}),
+                ("solve_smoother", {"max_iter": 30}),
+                ("solve_GMRES", {"max_iter": 30, "precondition": False}))
+
+
+def kernel_launches() -> dict:
+    """The three wrappers' launch counts as they stand."""
+    from saena_tpu_torch.ops import dia_spmv as d
+    from saena_tpu_torch.ops import strip8_spmv as s8
+    from saena_tpu_torch.ops import strip_spmv as s1
+
+    return {"dia_spmv": d.launches, "strip_spmv": s1.launches,
+            "strip8_spmv": s8.launches}
+
+
+def cpu_twin(solver):
+    """An f64 AMG on the CPU holding the card solver's host levels,
+    devicified on the CPU (the port's CPU branch: direct P/R), with the
+    card solver's eig estimates of the same host CSRs, its options, rhs and
+    boundary bookkeeping."""
+    import torch
+
+    from saena_tpu_torch import AMG
+    from saena_tpu_torch.amg.hierarchy import _DoneFuture, devicify
+
+    info = solver.info
+    cpu = AMG(device="cpu", dtype=torch.float64)
+    cpu.opts, cpu.params = solver.opts, solver.params
+    cpu._bound, cpu._rhs = solver._bound, solver._rhs
+    eigs = {l: _DoneFuture(L.eig_max)
+            for l, L in enumerate(solver.hierarchy.levels) if L.eig_max is not None}
+    cpu.hierarchy, cpu.info = devicify(
+        info.csr_levels, info.Ps, info.Rs, solver.opts, dtype=torch.float64,
+        device="cpu", eig_futures=eigs)
+    cpu.info.thetas, cpu.info.coarsen_kinds = info.thetas, info.coarsen_kinds
+    return cpu
+
+
+def agree(res, ref):
+    """None when two SolveResults took the same iterations with histories
+    at rtol 1e-6, else how they differ."""
+    if res.iters != ref.iters:
+        return f"iterations {res.iters} != CPU {ref.iters}"
+    h = res.history[: res.iters + 1].cpu().numpy()
+    hr = ref.history[: ref.iters + 1].cpu().numpy()
+    if not np.allclose(h, hr, rtol=1e-6, atol=0.0):
+        return f"history off the CPU run by {np.max(np.abs(h / hr - 1)):.3e}"
+    return None
+
+
+def timed(fn):
+    """(result of fn(), ms by CUDA events, kernel launches) of one call
+    after a warm call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    before = kernel_launches()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    after = kernel_launches()
+    return out, e0.elapsed_time(e1), {k: after[k] - before[k] for k in after}
+
+
+def entry_points(solver, cpu):
+    """Phase 3d on one solver; ``cpu``, its CPU twin or None (f32), holds
+    the f64 runs. The rhs is a seeded random vector (the Poisson rhs is
+    close to an eigenvector, which plain CG solves at once), the solver's
+    own rhs again afterwards. Returns (rows, failure or None)."""
+    saved = solver._rhs
+    rhs = np.random.default_rng(11).standard_normal(saved.size)
+    for s in (solver, cpu):
+        if s is not None:
+            s.set_rhs(rhs)
+    rows, bad = [], None
+    for name, kw in ENTRY_POINTS:
+        (u, res), ms, launched = timed(lambda: getattr(solver, name)(tol=1e-8, **kw))
+        r = {"entry": name, "dtype": str(solver.dtype), **kw, "iters": res.iters,
+             "rel_res": float(res.rel_res), "ms": ms, "launches": launched}
+        if not np.isfinite(u).all():
+            bad = bad or f"{name} ({solver.dtype}): non-finite solution"
+        if cpu is not None:
+            _, ref = getattr(cpu, name)(tol=1e-8, **kw)
+            r["cpu_iters"] = ref.iters
+            why = agree(res, ref)
+            if why:
+                bad = bad or f"{name} (f64) against the CPU run: {why}"
+            if name in ("solve", "solve_pGMRES") and not float(res.rel_res) < 1e-8:
+                bad = bad or f"{name} (f64): rel_res {float(res.rel_res):.3e}"
+        rows.append(r)
+        print("  " + json.dumps(r))
+    for s in (solver, cpu):
+        if s is not None:
+            s.set_rhs(saved)
+    return rows, bad
+
+
+def lazy_updates(solver, cpu):
+    """Phase 3e: update1 (A x 1.5), update2 (then plus 0.1 I), update3
+    (three diagonal entries more), a pCG solve after each, on the card and
+    on its CPU twin. Returns (rows, failure or None)."""
+    import scipy.sparse as sp
+    import torch
+
+    from saena_tpu_torch import Matrix, generators
+
+    A0 = generators.laplacian3D(M, M, M).tocsr()
+    A1 = (1.5 * A0).tocsr()
+    A2 = (A1 + sp.diags(np.full(A0.shape[0], 0.1))).tocsr()
+    A3 = A2.tolil()
+    for c in (1, M // 2, M - 2):                 # interior grid points
+        i = (c * M + c) * M + c
+        A3[i, i] += 0.5
+    A3 = A3.tocsr()
+
+    def matrix(A, dev):
+        mat = Matrix()
+        mat.set_csr(A.copy())
+        mat.assemble(device=dev, dtype=torch.float64)
+        return mat
+
+    rows, bad = [], None
+    for name, A in (("update1", A1), ("update2", A2), ("update3", A3)):
+        H0 = solver.hierarchy
+        t0 = time.perf_counter()
+        getattr(solver, name)(matrix(A, solver.device))
+        torch.cuda.synchronize()
+        upd_s = time.perf_counter() - t0
+        getattr(cpu, name)(matrix(A, "cpu"))
+        (u, res), ms, launched = timed(solver.solve_pCG)
+        _, ref = cpu.solve_pCG()
+        H1 = solver.hierarchy
+        r = {"update": name, "update_s": upd_s, "iters": res.iters,
+             "cpu_iters": ref.iters, "rel_res": float(res.rel_res),
+             "solve_ms": ms, "launches": launched,
+             "formats": level_formats(H1)}
+        if name == "update1":
+            r["reused_levels"] = all(H1.levels[l] is H0.levels[l]
+                                     for l in range(1, H0.n_levels))
+            r["reused_eigs"] = [L.eig_max for L in H1.levels] == \
+                [L.eig_max for L in H0.levels]
+            r["reused_coarse_lu"] = H1.coarse_lu is H0.coarse_lu
+            if not (r["reused_levels"] and r["reused_eigs"] and r["reused_coarse_lu"]):
+                bad = bad or f"update1 did not reuse what it should: {r}"
+        why = agree(res, ref)
+        if why:
+            bad = bad or f"{name}: {why}"
+        if not np.isfinite(u).all():
+            bad = bad or f"{name}: non-finite solution"
+        rows.append(r)
+        print("  " + json.dumps(r))
+    return rows, bad
 
 
 # ---------------------------------------------------------- phase 4: times --
@@ -929,6 +1182,21 @@ def launches_per_operator(solver) -> dict:
     return counts
 
 
+def gather_launch_map(solver) -> dict:
+    """{(label, kind, perrow, mode): launches in one pCG solve} of every
+    strip / strip8 operator of the solver's hierarchy."""
+    per_op = launches_per_operator(solver)
+    return {(label, kind, Mx.perrow, getattr(Mx, "mode", None)): per_op.get(id(Mx), 0)
+            for label, kind, Mx, _ in solve_gather_ops(solver)}
+
+
+def case_key(case, kind, Mx):
+    """The gather_launch_map key of a phase-2 case's operator."""
+    label = {"L0_Pt": "L0_P[Pt]", "L0_PtT": "L0_R[PtT]"}.get(
+        case, "L2_A" if case.startswith("L2_A_") else case)
+    return (label, kind, Mx.perrow, getattr(Mx, "mode", None))
+
+
 def tiny_operator():
     """A 128 x 128 operator with one entry: one pair, one tile."""
     import scipy.sparse as sp
@@ -949,10 +1217,10 @@ def fit_constants(dev, ops, rows) -> dict:
     tiny = tiny_operator()
     t_strip0 = time_gather(dev, "tiny", "strip",
                            strip_from_csr(tiny, torch.float64, dev), tiny,
-                           plain=False, library=False)["ms"]
+                           plain=False)["ms"]
     t_strip80 = time_gather(dev, "tiny", "strip8",
                             strip8_from_csr(tiny, torch.float64, dev), tiny,
-                            plain=False, library=False)["ms"]
+                            plain=False)["ms"]
     c = {"STRIP_LAUNCH_S": t_strip0 * 1e-3, "KERNEL_LAUNCH_S": t_strip80 * 1e-3}
     by = {(r["kernel"], r["case"]): r for r in rows}
     c["STRIP_NS_BY_PERROW"] = {
@@ -1007,6 +1275,7 @@ def main() -> int:
         for mod in counters.values():
             mod.launches = 0
         s1_mod.stream_launches = s8_mod.stream_launches = 0
+        s8_mod.interval_launches = 0
         dia_mod.rows_launches = 0
         dia_mod.shape_launches.clear()
 
@@ -1018,6 +1287,8 @@ def main() -> int:
         for k, mod in (("strip_spmv", s1_mod), ("strip8_spmv", s8_mod)):
             out[f"{k}/stream"] = mod.stream_launches
             out[f"{k}/rows"] = mod.launches - mod.stream_launches
+        out["strip8_spmv/interval"] = s8_mod.interval_launches
+        out["strip8_spmv/general"] = s8_mod.launches - s8_mod.interval_launches
         out["dia_spmv/tiled"] = dia_mod.launches - dia_mod.rows_launches
         out["dia_spmv/rows"] = dia_mod.rows_launches
         shapes = dia_mod.shape_launches
@@ -1050,6 +1321,12 @@ def main() -> int:
                                  r"bytes spill stores", log):
             if int(sp):
                 print(f"      {sp} bytes spilled by {fn}")
+    from saena_tpu_torch import _native
+    t0 = time.perf_counter()
+    if not _native.have_native():            # raises when g++ fails
+        return fail("no g++ on PATH: the native host kernels were not built")
+    print(f"[1] native host kernels {os.path.basename(_native.library_path(shutil.which('g++')))}"
+          f" loaded in {time.perf_counter() - t0:.2f} s (flags {' '.join(_native.CXX_FLAGS)})")
     with open(os.path.join(ROOT, "tests", "goldens", "convergence.json")) as f:
         golden = json.load(f)[GOLDEN]
     t0 = time.perf_counter()
@@ -1095,6 +1372,7 @@ def main() -> int:
     est = pick_estimates(solver32.info, solver32.hierarchy, torch.float32)
     print("[3a] picker estimates (f32, µs): " + json.dumps(est))
     print(f"[3b] forced path f64, {M}^3: Pt strip, Pt^T strip8, level-2 A the other")
+    picker64 = solver64.hierarchy
     solver64.hierarchy = forced_hierarchy(solver64)
     zero()
     rep_b, bad = run_solve(solver64, dev, golden, "forced")
@@ -1102,10 +1380,41 @@ def main() -> int:
     if bad or bad_count:
         return fail(f"forced main path: {bad or bad_count}")
     print(f"[3b] launches: {launches_b}")
+    forced_map = gather_launch_map(solver64)
+    solver64.hierarchy = picker64
     launches = {k: launches_a64[k] + launches_a32[k] + launches_b[k]
                 for k in launches_b}
+
+    print(f"[3c] {M}^3 f64 setup on the card's host: default (shard-parallel) "
+          "and serial")
+    setup_rep, bad = setup_on_host(dev)
+    if bad:
+        return fail(f"host setup: {bad}")
+    print(f"[3d] the other entry points on the phase-3a hierarchies "
+          f"(f64 against the port's CPU f64 runs; f32)")
+    t0 = time.perf_counter()
+    cpu64 = cpu_twin(solver64)
+    print(f"  CPU twin devicified in {time.perf_counter() - t0:.1f} s")
+    zero()
+    entry64, bad = entry_points(solver64, cpu64)
+    entry32, bad32 = entry_points(solver32, None)
+    launches_d, bad_count = read()
+    if bad or bad32 or bad_count:
+        return fail(f"entry points: {bad or bad32 or bad_count}")
+    print(f"[3d] launches: {launches_d}")
+    print(f"[3e] lazy updates on the card, f64, against the same sequence on the CPU")
+    zero()
+    lazy, bad = lazy_updates(solver64, cpu64)
+    launches_e, bad_count = read()
+    if bad or bad_count:
+        return fail(f"lazy updates: {bad or bad_count}")
+    print(f"[3e] launches: {launches_e}")
+    for extra in (launches_d, launches_e):
+        launches = {k: launches[k] + extra[k] for k in launches}
     print(f"[3] launches on the main path: {launches}")
-    if min(launches.values()) <= 0:
+    # every kernel and both paths of K2 and K3 (either strip8 mode will do)
+    if min(v for k, v in launches.items()
+           if not k.endswith(("/interval", "/general"))) <= 0:
         return fail(f"a kernel or a path never launched on the main path: {launches}")
 
     # ---- 4. times
@@ -1119,10 +1428,15 @@ def main() -> int:
           + (f"slower beyond 5% on {slow}" if slow else "no shape slower beyond 5%"))
     if min(r["launches_per_solve"] for r in times) <= 0:
         return fail("a K1 shape of phase 4 never launched in the phase-3 solves")
+    picker_map = gather_launch_map(solver32)
     grows = []
     for case, (kind, M64, A_host) in cases.items():
         if case.startswith(("L0_", "L2_A_")) and "chunk" not in case:
-            grows.append(time_gather(dev, case, kind, M64, A_host))
+            key = case_key(case, kind, M64)
+            grows.append(time_gather(
+                dev, case, kind, M64, A_host, launches_per_solve={
+                    "picker": picker_map.get(key, 0),
+                    "forced": forced_map.get(key, 0)}))
     print("[4] every strip / strip8 operator of the f32 solve (phase 3a), "
           "with its launches per solve")
     per_op = launches_per_operator(solver32)

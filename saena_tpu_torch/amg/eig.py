@@ -2,13 +2,16 @@
 
 lambda_max(D^{-1} A) with the reference's 1.0001 safety factor (ref
 find_eig_lamlan, lamlan_saena.h:13-79), by Lanczos on the similar symmetric
-form D^{-1/2} A D^{-1/2} with scipy matvecs.
+form D^{-1/2} A D^{-1/2}, its matvecs in native code (_native/strength.cpp,
+scipy's per-row accumulation order) or scipy without a toolchain.
 """
 from __future__ import annotations
 
 import numpy as np
 import scipy.linalg as sla
 import scipy.sparse as sp
+
+from saena_tpu_torch import _native
 
 SAFETY = 1.0001
 
@@ -61,6 +64,7 @@ def _lanczos_reorth_host(S, m: int = 40, blocks: int = 6,
     """Lanczos with full reorthogonalization for mid-size levels: returns
     ritz + bound within ~rtol of lambda_max. O(m^2 n)."""
     n = S.shape[0]
+    mv = _host_matvec(S)
     rng = np.random.default_rng(0)
     v = rng.standard_normal(n)
     v /= np.linalg.norm(v)
@@ -71,7 +75,7 @@ def _lanczos_reorth_host(S, m: int = 40, blocks: int = 6,
     ritz = bound = 0.0
     for _ in range(blocks):
         for _ in range(m):
-            w = S @ V[j]
+            w = mv(V[j])
             a = float(V[j] @ w)
             alphas.append(a)
             w -= a * V[j]
@@ -97,6 +101,20 @@ def _lanczos_reorth_host(S, m: int = 40, blocks: int = 6,
     return ritz + bound
 
 
+def _host_matvec(S):
+    """S @ x as a closure: the native OpenMP CSR SpMV when a toolchain
+    exists (scipy's per-row sequential accumulation, so the Lanczos
+    iterates are bit-identical), scipy otherwise. The arrays are converted
+    once, outside the loop."""
+    if not _native.have_native():
+        return lambda x: S @ x
+    S = S.tocsr()
+    indptr = np.ascontiguousarray(S.indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(S.indices, dtype=np.int32)
+    data = np.ascontiguousarray(S.data, dtype=np.float64)
+    return lambda x: _native.csr_matvec(indptr, indices, data, x)
+
+
 def _lanczos_host(S, m: int = 96, rtol: float = 1e-6) -> float:
     """Plain 3-term Lanczos for the extreme Ritz value (the reference runs a
     plain recurrence too, lamlan_saena.h:13-79). Orthogonality loss only
@@ -104,6 +122,7 @@ def _lanczos_host(S, m: int = 96, rtol: float = 1e-6) -> float:
     Returns ritz + residual bound so the Chebyshev interval sits at or above
     lambda_max. Cost: <= m SpMVs + O(m n)."""
     n = S.shape[0]
+    mv = _host_matvec(S)
     rng = np.random.default_rng(0)
     v = rng.standard_normal(n)
     v /= np.linalg.norm(v)
@@ -116,7 +135,7 @@ def _lanczos_host(S, m: int = 96, rtol: float = 1e-6) -> float:
     max_abs_alpha = 1.0
 
     for j in range(m):
-        w = S @ v - beta_prev * v_prev
+        w = mv(v) - beta_prev * v_prev
         a = float(v @ w)
         alphas.append(a)
         max_abs_alpha = max(max_abs_alpha, abs(a))
@@ -138,3 +157,25 @@ def _lanczos_host(S, m: int = 96, rtol: float = 1e-6) -> float:
             ritz_prev = ritz
         betas.append(b)
     return ritz + min(bound, 1e-3 * abs(ritz))
+
+
+def _power_iteration_host(S, iters: int = 100, tol: float = 1e-5) -> float:
+    """Power iteration for the largest eigenvalue of S (host, scipy
+    matvecs): stops when the Rayleigh quotient moves by less than ``tol``
+    relative."""
+    rng = np.random.default_rng(0)
+    v = rng.standard_normal(S.shape[0])
+    v /= np.linalg.norm(v)
+    lam = 0.0
+    for _ in range(iters):
+        w = S @ v
+        lam_new = float(v @ w)
+        nw = np.linalg.norm(w)
+        if nw == 0:
+            return 0.0
+        v = w / nw
+        if abs(lam_new - lam) < tol * abs(lam_new):
+            lam = lam_new
+            break
+        lam = lam_new
+    return lam

@@ -2,7 +2,9 @@
 
 The reference computes Ac = R*A*P with a ring-pipelined distributed SpGEMM
 (triple_mat_mult / matmat_CSC, saena_object_setup_matmat.cpp). Setup runs
-on the host here, so the product is a host sparse matmul.
+on the host here, so the product is a host sparse matmul: the native
+Gustavson kernel (_native/spgemm.cpp), torch's CPU kernel without a
+toolchain.
 
 filter_lump(): diagonal lumping of small entries (ref
 saena_object_setup2.cpp:852-918): dropped off-diagonal values are added to
@@ -21,6 +23,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from saena_tpu_torch import _native
+
 
 def _torch_csr(M: sp.csr_matrix) -> torch.Tensor:
     M = M.tocsr()
@@ -30,10 +34,16 @@ def _torch_csr(M: sp.csr_matrix) -> torch.Tensor:
         torch.from_numpy(M.data), size=M.shape)
 
 
-def _spgemm(X: sp.csr_matrix, Y: sp.csr_matrix) -> sp.csr_matrix:
-    """Host SpGEMM: torch's CPU sparse kernel, then scipy where torch has
-    none for these operands (the stand-in for the reference's
-    mkl_dcsrmultcsr base case, saena_object_setup_matmat.cpp:214)."""
+def _spgemm(X: sp.csr_matrix, Y: sp.csr_matrix,
+            nt: int = 0) -> sp.csr_matrix:
+    """Host SpGEMM: the native Gustavson kernel on ``nt`` OpenMP threads (0
+    = OpenMP's default; shard tasks that already run in parallel pass 1),
+    then torch's CPU sparse kernel, then scipy where torch has none for
+    these operands (the stand-in for the reference's mkl_dcsrmultcsr base
+    case, saena_object_setup_matmat.cpp:214)."""
+    Z = _native.spgemm_csr(X.tocsr(), Y.tocsr(), nt=nt)
+    if Z is not None:
+        return Z
     try:
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")

@@ -7,9 +7,14 @@ ELL and dense operators, inverse diagonals, the cached coarse solve) that
 the V-cycle and pCG consume (ref saena_object::setup, saena_object.cpp:
 175-406).
 
-Setup is serial, as saena_tpu's shard-parallel setup is documented to be
-bitwise-identical to its serial one; only each level's Lanczos eig estimate
-runs on a worker thread behind the coarsening of deeper levels.
+The coarsening loop takes a ``coarsen_fn`` hook: the shard-parallel setup
+(parallel/dist_setup.py), which ``AMG.set_matrix`` takes by default, plugs
+in there with a bitwise-identical result. Each level's Lanczos eig estimate
+runs on a worker thread behind the coarsening of deeper levels, and
+``devicify`` builds the levels on the same executor, assembled in level
+order. ``devicify(reuse=...)`` is the lazy-update path: it reuses unchanged
+levels, and the eig estimate, format plans and P/R of levels whose pattern
+is unchanged.
 
 Formats follow the JAX package's two branches. On the CPU: DIA, ELL or
 dense A, direct P/R in ELL. On the card: wide-stencil DIA and the gather
@@ -23,6 +28,7 @@ level's A is symmetric; ``structural_transfers=False`` never does.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
@@ -31,6 +37,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from saena_tpu_torch import _native
 from saena_tpu_torch.config import Options
 from saena_tpu_torch.runtime import PhaseTimer, resolve_device, resolve_dtype
 from saena_tpu_torch.ops.formats import (
@@ -211,14 +218,46 @@ class SetupInfo:
     # may exceed the "wall" entry) and, apart from them, the bytes uploaded
     phases: dict = dataclasses.field(default_factory=dict, repr=False)
     upload_bytes: int = 0
+    comm: object = None   # CommMeter when built by parallel/dist_setup.py
+    n_shards: int = 0     # shard count of the setup that built this
+    native: bool = False  # whether the native host kernels were used
 
-    def table(self) -> str:
+    def shard_stats(self, n_shards: int = 0) -> list:
+        """Per level, per-shard (M_min, M_avg, M_max, nnz_min, nnz_avg,
+        nnz_max) under the nnz-balanced 1-D row split at ``n_shards``
+        (default: the setup's shard count, or 1), the fields the
+        reference's print_lev_info reports across ranks
+        (saena_object.cpp:111-145)."""
+        from saena_tpu_torch.parallel.partition import nnz_balanced_split
+
+        d = n_shards or self.n_shards or 1
+        out = []
+        for A in self.csr_levels:
+            split = nnz_balanced_split(A.tocsr(), d)
+            M = np.diff(split)
+            csum = np.concatenate([[0], np.cumsum(np.diff(A.tocsr().indptr))])
+            nnz = csum[split[1:]] - csum[split[:-1]]
+            out.append((int(M.min()), int(M.mean()), int(M.max()),
+                        int(nnz.min()), int(nnz.mean()), int(nnz.max())))
+        return out
+
+    def table(self, shards: int = 0) -> str:
+        """Level summary; with ``shards`` (or a shard-parallel setup) it
+        adds the reference's per-rank M / nnz min-avg-max columns
+        (print_lev_info, saena_object.cpp:111-145)."""
+        d = shards or self.n_shards
+        stats = self.shard_stats(d) if d > 1 else None
         lines = ["lvl       rows          nnz    density  format       dtype     coarsen"]
+        if stats is not None:
+            lines[0] += "  M(min,avg,max)            nnz(min,avg,max)"
         for i in range(len(self.sizes)):
-            lines.append(
-                f"{i:<3} {self.sizes[i]:>10} {self.nnzs[i]:>12}  "
-                f"{self.densities[i]:>9.2e}  {self.formats[i]:<12} "
-                f"{self.dtypes[i]:<9} {self.coarsen_kinds[i]}")
+            row = (f"{i:<3} {self.sizes[i]:>10} {self.nnzs[i]:>12}  "
+                   f"{self.densities[i]:>9.2e}  {self.formats[i]:<12} "
+                   f"{self.dtypes[i]:<9} {self.coarsen_kinds[i]}")
+            if stats is not None:
+                m0, m1, m2, z0, z1, z2 = stats[i]
+                row += f"  ({m0},{m1},{m2})".ljust(26) + f"({z0},{z1},{z2})"
+            lines.append(row)
         return "\n".join(lines)
 
 
@@ -314,9 +353,15 @@ def setup(
     dtype=None,
     device=None,
     use_dense: bool = False,
+    coarsen_fn=None,
 ) -> tuple[Hierarchy, SetupInfo]:
     """Build the AMG hierarchy of a host CSR matrix on ``device`` (the card
-    unless named) at ``dtype`` (torch's default unless named)."""
+    unless named) at ``dtype`` (torch's default unless named).
+
+    ``coarsen_fn``: a replacement for :func:`coarsen_csr` with the same
+    (A, lvl, opts, timer) -> (P, R, Ac, last, theta, struct) | None
+    contract; the shard-parallel setup (parallel/dist_setup.py) plugs in
+    here."""
     opts = opts or Options()
     _check_supported(opts)
     device = resolve_device(device)
@@ -354,9 +399,11 @@ def setup(
         with timer.phase("eig"):
             return eig_max_invdiag_host(Acur)
 
-    # a level's lambda_max is final once its coarse level exists: estimate
-    # it on a worker thread behind the coarsening of deeper levels
-    exe = ThreadPoolExecutor(max_workers=1)
+    # the executor runs each level's Lanczos eig estimate behind the
+    # coarsening of deeper levels (a level's lambda_max is final once its
+    # coarse level exists), then devicify's level builds; FIFO order puts
+    # every eig ahead of the builds that wait on it
+    exe = ThreadPoolExecutor(max_workers=_setup_workers())
     try:
         while len(csr_levels) - 1 < opts.max_level:
             Acur = csr_levels[-1]
@@ -364,7 +411,7 @@ def setup(
             if opts.dynamic_levels and \
                     Acur.shape[0] <= opts.least_row_threshold:
                 break
-            out = coarsen_csr(Acur, lvl, opts, timer)
+            out = (coarsen_fn or coarsen_csr)(Acur, lvl, opts, timer)
             if out is None:
                 break
             P, R, Ac, last, theta, struct = out
@@ -382,7 +429,7 @@ def setup(
         hierarchy, info = devicify(
             csr_levels, Ps, Rs, opts, dtype=dtype, device=device,
             use_dense=use_dense, inv_sq_diag=inv_sq_diag, structs=structs,
-            eig_futures=eig_futs, timer=timer)
+            eig_futures=eig_futs, timer=timer, executor=exe)
     finally:
         exe.shutdown(wait=True, cancel_futures=True)
     timer.add("wall", time.perf_counter() - t_wall0)
@@ -391,6 +438,56 @@ def setup(
     info.thetas = thetas + [None]
     info.coarsen_kinds = kinds + ["-"]
     return hierarchy, info
+
+
+def _setup_workers() -> int:
+    """The setup executor's workers: the host's cores, between 2 and 4
+    (the level builds are CPU-bound planners; more workers than cores
+    thrash)."""
+    return max(2, min(4, os.cpu_count() or 2))
+
+
+class _DoneFuture:
+    """A completed future, for devicify's eig_futures."""
+
+    def __init__(self, v):
+        self._v = v
+
+    def result(self):
+        return self._v
+
+
+def _same_pattern(a: sp.csr_matrix, b: sp.csr_matrix) -> bool:
+    """True when two CSRs share shape and sparsity pattern (values may
+    differ), the precondition of every lazy-update reuse."""
+    if a is b:
+        return True
+    if a.shape != b.shape or a.nnz != b.nnz:
+        return False
+    return np.array_equal(a.indptr, b.indptr) and \
+        np.array_equal(a.indices, b.indices)
+
+
+# the symmetry memo (ops/transfers.py) is deliberately not moved: symmetry
+# is a property of the values, which a same-pattern refresh may change
+_PLAN_MEMO_ATTRS = ("_saena_torch_strip_pick", "_saena_torch_bsr_geom")
+
+
+def _transfer_plan_memos(old: sp.csr_matrix, new: sp.csr_matrix) -> None:
+    """Copy the pattern-only planning memos from ``old`` onto ``new`` (same
+    pattern, new values): the strip pick, the BSR geometry and the strip8
+    plan, whose layout is pattern-only; its stored COO is taken from the
+    new matrix so that value scatters see the new values."""
+    if not _same_pattern(old, new):
+        return
+    for attr in _PLAN_MEMO_ATTRS:
+        tok = getattr(old, attr, None)
+        if tok is not None:
+            setattr(new, attr, tok)
+    tok = getattr(old, "_saena_torch_strip8_plan", None)
+    if tok is not None:
+        new.sort_indices()
+        new._saena_torch_strip8_plan = (tok[0], (new.tocoo(), tok[1][1]))
 
 
 def devicify(
@@ -405,12 +502,24 @@ def devicify(
     structs=None,
     eig_futures=None,
     timer: Optional[PhaseTimer] = None,
+    executor=None,
+    reuse=None,
 ) -> tuple[Hierarchy, SetupInfo]:
     """Convert a host CSR hierarchy into device levels. ``structs``: per
     coarsening step (agg, wq) or None, from setup(); without them every
     level gets direct P/R. ``eig_futures``: per-level futures of
     eig_max_invdiag_host started by setup(); levels without one compute it
-    inline."""
+    inline. ``executor``: a thread pool that builds the levels (their
+    planning and uploads are independent), assembled in level order;
+    bitwise the serial build. Builders launch no kernel, so no gather
+    kernel runs on a worker thread.
+
+    ``reuse``: (old_hierarchy, old_csrs, old_Ps, old_Rs) of the previous
+    devicify, the lazy-update path (ref ITER_LAZY, saena_object.h:19):
+    levels whose CSR object is unchanged are reused whole; levels whose
+    pattern is unchanged keep the old eig estimate, format plans (moved
+    onto the new CSR) and P/R device objects, and the coarse LU is kept
+    when the coarsest CSR is unchanged."""
     device = resolve_device(device)
     dtype = resolve_dtype(dtype)
     timer = timer or PhaseTimer()
@@ -418,13 +527,54 @@ def devicify(
     structs = list(structs) if structs else [None] * len(Ps)
     info = SetupInfo([], [], [], [], [], [None] * n_lv, ["-"] * n_lv,
                      csr_levels=list(csr_levels), Ps=list(Ps), Rs=list(Rs),
-                     structs=structs)
+                     structs=structs, native=_native.have_native())
 
+    reuse_eigs: dict = {}
+    if reuse is not None:
+        old_hier, old_csrs, old_Ps, old_Rs = reuse
+        for l in range(min(n_lv, len(old_csrs))):
+            if _same_pattern(old_csrs[l], csr_levels[l]):
+                _transfer_plan_memos(old_csrs[l], csr_levels[l])
+                if old_hier.levels[l].eig_max is not None:
+                    # a values-only refresh keeps lambda_max, the lazy
+                    # path's approximation (set_matrix recomputes it)
+                    reuse_eigs[l] = old_hier.levels[l].eig_max
+
+    def build_level(l):
+        is_coarsest = l == n_lv - 1
+        if reuse is not None and l < len(old_csrs):
+            old_lv = old_hier.levels[l]
+            same_A = old_csrs[l] is csr_levels[l]
+            same_PR = is_coarsest or (
+                l < len(old_Ps) and old_Ps[l] is Ps[l] and old_Rs[l] is Rs[l])
+            same_pat = l in reuse_eigs or \
+                _same_pattern(old_csrs[l], csr_levels[l])
+            if same_A and same_PR:
+                Acsr = csr_levels[l]
+                n = Acsr.shape[0]
+                return old_lv, (n, int(Acsr.nnz), Acsr.nnz / max(1, n * n),
+                                type(old_lv.A).__name__,
+                                dtype_name(old_lv.A.dtype))
+            if same_PR and same_pat:
+                # values only: rebuild A and inv_diag, graft the old P/R
+                # unchanged. Structural SmoothedP/R embed the A they were
+                # smoothed with, and only that A matches the host Ps/Rs the
+                # coarse operators were built through: keep it
+                lv, row = _level_task(
+                    l, is_coarsest, csr_levels, Ps, Rs, None, opts, dtype,
+                    device, use_dense,
+                    {l: _DoneFuture(reuse_eigs[l])} if l in reuse_eigs
+                    else None, timer, skip_transfers=True)
+                return dataclasses.replace(lv, P=old_lv.P, R=old_lv.R), row
+        return _level_task(l, is_coarsest, csr_levels, Ps, Rs, structs, opts,
+                           dtype, device, use_dense, eig_futures, timer)
+
+    if executor is not None and n_lv > 1:
+        built = list(executor.map(build_level, range(n_lv)))
+    else:
+        built = [build_level(l) for l in range(n_lv)]
     levels = []
-    for l in range(n_lv):
-        level, (n, nnz, dens, fmt, dts) = _level_task(
-            l, l == n_lv - 1, csr_levels, Ps, Rs, structs, opts, dtype,
-            device, use_dense, eig_futures, timer)
+    for level, (n, nnz, dens, fmt, dts) in built:
         levels.append(level)
         info.sizes.append(n)
         info.nnzs.append(nnz)
@@ -435,7 +585,11 @@ def devicify(
     # ---- coarsest factorization (cached across solves) ----
     t0 = time.perf_counter()
     coarse_lu = None
-    if opts.direct_solver == "LU":
+    if (reuse is not None and opts.direct_solver == "LU"
+            and len(old_csrs) == n_lv and old_csrs[-1] is csr_levels[-1]
+            and old_hier.coarse_lu is not None):
+        coarse_lu = old_hier.coarse_lu        # coarsest level untouched
+    elif opts.direct_solver == "LU":
         Acoarse = csr_levels[-1]
         n = Acoarse.shape[0]
         # the coarse direct solve runs at the vector dtype, at least f32
@@ -504,8 +658,9 @@ def _structural_wins(l, agg, n_c, Adev, Ps, Rs, dt, dt_next) -> bool:
 
 
 def _level_task(l, is_coarsest, csr_levels, Ps, Rs, structs, opts, dtype,
-                device, use_dense, eig_futures, timer):
-    """Build one level's device objects (A format, inv_diag, eig, P/R)."""
+                device, use_dense, eig_futures, timer, skip_transfers=False):
+    """Build one level's device objects (A format, inv_diag, eig and, unless
+    ``skip_transfers``, P/R)."""
     low_dtype = getattr(torch, opts.low_dtype)
     Acsr = csr_levels[l]
     # storage reduction only under the opt-in float_storage flag
@@ -538,11 +693,11 @@ def _level_task(l, is_coarsest, csr_levels, Ps, Rs, structs, opts, dtype,
                 eig = float(eig_max_invdiag_host(Acsr))
 
     P_dev = R_dev = None
-    if not is_coarsest:
+    if not is_coarsest and not skip_transfers:
         t0 = time.perf_counter()
         dt_next = low_dtype if (opts.float_storage
                                 and (l + 1) >= opts.float_level) else dtype
-        struct = structs[l]
+        struct = structs[l] if structs else None
         force = opts.structural_transfers == "force"
         if struct is not None and (force or accelerator_branch(device)):
             agg, wq = struct

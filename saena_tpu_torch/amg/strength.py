@@ -2,8 +2,10 @@
 
 The reference computes these with distributed halo exchanges
 (create_strength_matrix saena_object_setup1.cpp:520-719, aggregation_1_dist
-:724-995, an iterative min-index propagation). Here the same fixpoint runs
-as vectorized numpy rounds, each round one reference while-iteration, so
+:724-995, an iterative min-index propagation). Here the keep mask and the
+MIS(1) aggregation run in native code (_native/strength.cpp, mis1.cpp),
+with vectorized numpy versions of the same computations (the fixpoint in
+rounds, each one reference while-iteration) where no toolchain exists, so
 the aggregates, and with them the hierarchy and the iteration counts,
 follow the reference's semantics.
 """
@@ -11,6 +13,30 @@ from __future__ import annotations
 
 import numpy as np
 import scipy.sparse as sp
+
+from saena_tpu_torch import _native
+
+
+def _row_reduce(ufunc, vals, rows, n, identity):
+    """Per-row ufunc reduction of (rows, vals) pairs, rows not assumed
+    sorted: sorts once (skipped when already sorted), then reduceat."""
+    if vals.size == 0:
+        return np.full(n, identity)
+    if rows.size > 1 and (rows[1:] >= rows[:-1]).all():
+        rs, vs = rows, vals
+    else:
+        order = np.argsort(rows, kind="stable")
+        rs, vs = rows[order], vals[order]
+    starts = np.searchsorted(rs, np.arange(n))
+    out = np.full(n, identity,
+                  dtype=vals.dtype if vals.dtype.kind == "f" else np.float64)
+    nonempty = starts < vs.size
+    # reduceat returns vs[start] for an empty segment: mask those out
+    seg = ufunc.reduceat(vs, np.minimum(starts, vs.size - 1))
+    counts = np.diff(np.append(starts, vs.size))
+    valid = nonempty & (counts > 0)
+    out[valid] = seg[valid]
+    return out
 
 
 def _row_min_indices(cand, starts, counts, n, big):
@@ -27,7 +53,9 @@ def strength_graph(A: sp.csr_matrix, theta: float) -> sp.csr_matrix:
     """S_ij = -a_ij / max_{k != i}(-a_ik); keep entries where S_ij > theta or
     S_ji > theta (union symmetrization, strength_matrix.cpp:233-271).
     Returns a boolean-pattern CSR without the diagonal, built directly on
-    A's CSR arrays (the kept entries are a subset of A's, in CSR order)."""
+    A's CSR arrays (the kept entries are a subset of A's, in CSR order).
+    The keep mask is native (strength.cpp) where a toolchain exists,
+    bit-identical to :func:`_strength_keep_numpy`."""
     A = A.tocsr()
     if not A.has_sorted_indices:
         A = A.copy()          # sort a copy: the caller's entry order stays
@@ -35,6 +63,26 @@ def strength_graph(A: sp.csr_matrix, theta: float) -> sp.csr_matrix:
     n = A.shape[0]
     indptr, indices, data = A.indptr, A.indices, A.data
 
+    nat = _native.strength_keep(indptr, indices, data, theta) \
+        if data.size else None
+    keep = nat[0] if nat is not None else \
+        _strength_keep_numpy(indptr, indices, data, theta)
+
+    cnt = np.zeros(n, dtype=np.int64)
+    if keep.size:
+        csum = np.concatenate([[0], np.cumsum(keep)])
+        cnt = csum[indptr[1:]] - csum[indptr[:-1]]
+    indptr_s = np.concatenate([[0], np.cumsum(cnt)])
+    indices_s = indices[keep]
+    return sp.csr_matrix(
+        (np.ones(indices_s.size, dtype=np.int8), indices_s, indptr_s),
+        shape=(n, n))
+
+
+def _strength_keep_numpy(indptr, indices, data, theta: float) -> np.ndarray:
+    """The strength keep mask in numpy: off-diagonal entries whose scaled
+    value exceeds theta in their row or in their column."""
+    n = indptr.size - 1
     rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
     isdiag = indices == rows
     negv = -data
@@ -50,29 +98,37 @@ def strength_graph(A: sp.csr_matrix, theta: float) -> sp.csr_matrix:
     safe = np.where(np.isfinite(maxrow) & (maxrow != 0), maxrow, 1.0)
     s_row = negv / safe[rows]     # scaled by the row's max
     s_col = negv / safe[indices]  # transpose scaling (symmetric-A shortcut)
-    keep = ~isdiag & ((s_row > theta) | (s_col > theta))
-
-    cnt = np.zeros(n, dtype=np.int64)
-    if keep.size:
-        csum = np.concatenate([[0], np.cumsum(keep)])
-        cnt = csum[indptr[1:]] - csum[indptr[:-1]]
-    indptr_s = np.concatenate([[0], np.cumsum(cnt)])
-    indices_s = indices[keep]
-    return sp.csr_matrix(
-        (np.ones(indices_s.size, dtype=np.int8), indices_s, indptr_s),
-        shape=(n, n))
+    return ~isdiag & ((s_row > theta) | (s_col > theta))
 
 
 def aggregate_mis1(S: sp.csr_matrix):
     """Distance-1 MIS aggregation, reproducing aggregation_1_dist
-    (saena_object_setup1.cpp:724-995) by a vectorized min-index fixpoint.
-    Each round is one reference while-iteration: an undecided node i looks
-    at its strength neighbours j that are undecided or roots and takes the
-    minimum index jm; if none is below i, i becomes a root; if jm is a
-    decided root, i joins it; otherwise i waits for jm to decide.
+    (saena_object_setup1.cpp:724-995).
+
+    The fixpoint (:func:`_aggregate_mis1_fixpoint`) resolves to the
+    lexicographically first maximal independent set, since a node's
+    decision depends only on smaller indices; the native single-pass sweep
+    (mis1.cpp, O(nnz)) computes the same aggregation without the rounds.
+    Without a toolchain the fixpoint runs.
 
     Returns (agg, roots): agg[i] = coarse index of node i's aggregate,
     roots = fine indices of the root nodes (sorted)."""
+    S = S.tocsr()
+    out = _native.mis1_aggregate(S.indptr, S.indices)
+    if out is None:
+        return _aggregate_mis1_fixpoint(S)
+    agg, is_root = out
+    roots = np.flatnonzero(is_root)
+    coarse_id = np.searchsorted(roots, agg)
+    return coarse_id.astype(np.int64), roots
+
+
+def _aggregate_mis1_fixpoint(S: sp.csr_matrix):
+    """The vectorized min-index fixpoint. Each round is one reference
+    while-iteration: an undecided node i looks at its strength neighbours j
+    that are undecided or roots and takes the minimum index jm; if none is
+    below i, i becomes a root; if jm is a decided root, i joins it;
+    otherwise i waits for jm to decide."""
     S = S.tocsr()
     n = S.shape[0]
     indptr, indices = S.indptr, S.indices

@@ -3,7 +3,8 @@
 saena_tpu_torch.config ~ saena::options.
 
 Matrix wraps host CSR assembly plus a device matrix; AMG wraps hierarchy
-setup and the pCG solve. Both run on the CUDA card unless the caller names
+setup (shard-parallel by default, ``Options.setup_shards``), the solvers
+and the lazy updates. Both run on the CUDA card unless the caller names
 another device (``device="cpu"``); without a card and without that request
 they raise. ``dtype`` defaults to torch's default dtype.
 """
@@ -17,9 +18,15 @@ import torch
 
 from saena_tpu_torch.amg import hierarchy as _hier
 from saena_tpu_torch.amg import solvers as _solvers
+from saena_tpu_torch.amg.galerkin import (
+    filter_lump,
+    filter_threshold,
+    galerkin_product,
+)
 from saena_tpu_torch.config import Options
 from saena_tpu_torch.core.coo import CooBuilder, remove_boundary_nodes
 from saena_tpu_torch.ops.formats import device_matrix_from_csr, pad_to
+from saena_tpu_torch.parallel.dist_setup import dist_setup
 from saena_tpu_torch.runtime import resolve_device, resolve_dtype
 
 
@@ -32,6 +39,8 @@ class Matrix:
         self._csr: Optional[sp.csr_matrix] = None
         self._device_matrix = None
         self._use_dense = False
+        self._device = None
+        self._dtype = None
 
     def set(self, rows, cols, vals) -> None:
         self._builder.set(rows, cols, vals)
@@ -48,11 +57,37 @@ class Matrix:
         if self._csr is None:
             raise ValueError("no entries set before assemble()")
         self._use_dense = use_dense
+        self._device, self._dtype = resolve_device(device), resolve_dtype(dtype)
         self._device_matrix = device_matrix_from_csr(
-            self._csr, resolve_dtype(dtype), resolve_device(device),
+            self._csr, self._dtype, self._device,
             switch_to_dense=use_dense, dense_thre=0.0 if use_dense else 0.1,
             dense_sz_thre=1 << 30 if use_dense else 5000)
         return self
+
+    def update_values(self, vals) -> None:
+        """Replace the nonzero values, keeping the pattern (the lazy-update
+        ingredient, ref erase_lazy_update / matrix_setup_lazy_update); an
+        assembled matrix is assembled again on its device."""
+        vals = np.asarray(vals)
+        if self._csr is None or vals.shape != self._csr.data.shape:
+            raise ValueError("pattern mismatch in update_values")
+        self._csr.data[:] = vals
+        if self._device_matrix is not None:
+            self.assemble(use_dense=self._use_dense, device=self._device,
+                          dtype=self._dtype)
+
+    def get_num_rows(self) -> int:
+        return self.csr.shape[0]
+
+    def get_nnz(self) -> int:
+        return int(self.csr.nnz)
+
+    def erase(self) -> None:
+        self._builder = CooBuilder(add_duplicates=self._builder.add_duplicates)
+        self._csr = None
+        self._device_matrix = None
+
+    destroy = erase
 
     @property
     def csr(self) -> sp.csr_matrix:
@@ -87,9 +122,11 @@ class AMG:
         self._bound = None       # boundary-removal bookkeeping
 
     def set_matrix(self, A: Matrix, opts: Optional[Options] = None) -> "AMG":
-        """Set up the hierarchy of A. The setup is serial
-        (``Options.setup_shards`` is not read: the JAX package documents its
-        shard-parallel setup as bitwise-identical to the serial one)."""
+        """Set up the hierarchy of A. ``Options.setup_shards`` picks the
+        host setup as saena_tpu does: -1 (the default) runs the
+        shard-parallel setup (one shard per 4 cores, at least 2), a
+        positive value forces that shard count, 0 runs the serial setup.
+        All give the same hierarchy bit for bit."""
         if opts is not None:
             self.opts = opts
         csr = A.csr
@@ -99,21 +136,30 @@ class AMG:
             if bound.size:
                 self._bound = (interior, bound, bound_diag, csr.shape[0])
                 csr = Ai
-        self.hierarchy, self.info = _hier.setup(
-            csr, self.opts, dtype=self.dtype, device=self.device,
-            use_dense=A._use_dense)
+        if self.opts.setup_shards:
+            self.hierarchy, self.info = dist_setup(
+                csr, self.opts, dtype=self.dtype, device=self.device,
+                n_shards=max(self.opts.setup_shards, 0),
+                use_dense=A._use_dense)
+        else:
+            self.hierarchy, self.info = _hier.setup(
+                csr, self.opts, dtype=self.dtype, device=self.device,
+                use_dense=A._use_dense)
         self.params = _hier.SolveParams.from_options(self.opts)
         if self.opts.verbose:
             print(self.info.table())
+            if self.info.comm is not None:
+                print(self.info.comm.table())   # setup wire volume by phase
         return self
 
     def set_rhs(self, rhs) -> "AMG":
         self._rhs = np.asarray(rhs, dtype=np.float64)
         return self
 
-    def solve_pCG(self, **kw):
-        """Returns (u, SolveResult): u is the host solution of the full
-        system (boundary rows merged back when they were removed)."""
+    # ---- solves: each returns (u, SolveResult), u the host solution of the
+    # full system (boundary rows merged back when they were removed) ----
+
+    def _run(self, fn, **kw):
         if self.hierarchy is None or self._rhs is None:
             raise ValueError("set_matrix() and set_rhs() first")
         rhs = self._rhs
@@ -125,10 +171,9 @@ class AMG:
             rhs = rhs[interior]
         n = self.hierarchy.n
         rhs_p = np.pad(rhs, (0, self.hierarchy.n_pad - n))
-        res = _solvers.solve_pCG(self.hierarchy, rhs_p, params=self.params,
-                                 tol=kw.pop("tol", self.opts.tol),
-                                 max_iter=kw.pop("max_iter", self.opts.max_iter),
-                                 **kw)
+        res = fn(self.hierarchy, rhs_p, params=self.params,
+                 tol=kw.pop("tol", self.opts.tol),
+                 max_iter=kw.pop("max_iter", self.opts.max_iter), **kw)
         u = res.u[:n].cpu().numpy().astype(np.float64)
         if self._bound is not None:
             full = np.zeros(n_full)
@@ -141,3 +186,123 @@ class AMG:
                 f"(init_res={float(res.init_res):.3e}); residual history: "
                 f"{res.history[:res.iters + 1].cpu().numpy()}")
         return u, res
+
+    def solve_pCG(self, **kw):
+        return self._run(_solvers.solve_pCG, **kw)
+
+    def solve(self, **kw):
+        return self._run(_solvers.solve, **kw)
+
+    def solve_CG(self, **kw):
+        return self._run(_solvers.solve_CG, **kw)
+
+    def solve_smoother(self, **kw):
+        return self._run(_solvers.solve_smoother, **kw)
+
+    def solve_GMRES(self, **kw):
+        return self._run(_solvers.solve_GMRES, **kw)
+
+    def solve_pGMRES(self, **kw):
+        kw.setdefault("precondition", True)
+        return self._run(_solvers.solve_GMRES, **kw)
+
+    # ---- lazy updates (ref saena.hpp:236-241, saena_object_lazy.cpp) ----
+
+    def _strip_boundary(self, csr):
+        """Apply set_matrix's boundary removal to an updated matrix: the
+        stored interior / boundary index sets (pattern-only, so a
+        same-pattern refresh keeps them) cut the new full matrix down to
+        the interior system, and the boundary diagonal takes the new
+        values (u_b = rhs_b / diag_b)."""
+        if self._bound is None:
+            return csr
+        interior, bound, bound_diag, n_full = self._bound
+        if csr.shape[0] != n_full:
+            return csr   # the caller passed an interior-sized matrix
+        self._bound = (interior, bound, csr.diagonal()[bound], n_full)
+        return csr[interior][:, interior].tocsr()
+
+    def _check_updatable(self) -> None:
+        if self.info is None:
+            raise ValueError("set_matrix() first")
+        if self.opts.scale:
+            # the host levels hold the scaled operator: an unscaled update
+            # would mix two systems in one hierarchy
+            raise NotImplementedError(
+                "lazy updates of a hierarchy built with Options(scale=True)")
+
+    def update1(self, A_new: Matrix) -> "AMG":
+        """Replace only the finest level's values (same pattern)."""
+        self._check_updatable()
+        old = self._snapshot()
+        self.info.csr_levels[0] = self._strip_boundary(A_new.csr)
+        self._redevicify(old)
+        return self
+
+    def update2(self, A_new: Matrix) -> "AMG":
+        """Recompute every coarse operator through the existing P/R."""
+        self._check_updatable()
+        old = self._snapshot()
+        levels = [self._strip_boundary(A_new.csr)]
+        for l, (P, R) in enumerate(zip(self.info.Ps, self.info.Rs)):
+            Ac = galerkin_product(R, levels[-1], P)
+            thre = filter_threshold(l + 1, self.opts.filter_thre,
+                                    self.opts.filter_max, self.opts.filter_start,
+                                    self.opts.filter_rate)
+            levels.append(filter_lump(Ac, thre))
+        self.info.csr_levels = levels
+        self._redevicify(old)
+        return self
+
+    def update3(self, A_new: Matrix) -> "AMG":
+        """Diff-propagating update (ref saena_object_lazy.cpp:1169-2316,
+        local_diff + compute_coarsen_update_Ac): the sparse delta D =
+        A_new - A_old goes through the existing transfers, Ac += R D P on
+        every level. Falls back to update2 when the shape changed or the
+        diff holds more than 25% of A's nonzeros. As in the reference, the
+        per-level filter is not applied again to the propagated diff."""
+        self._check_updatable()
+        snap = self._snapshot()
+        old = self.info.csr_levels[0]
+        csr = self._strip_boundary(A_new.csr)
+        if old.shape != csr.shape:
+            return self.update2(A_new)
+        D = (csr - old).tocsr()
+        D.eliminate_zeros()
+        if D.nnz == 0:
+            return self
+        if D.nnz > 0.25 * max(1, csr.nnz):
+            return self.update2(A_new)
+        levels = [csr]
+        for P, R, Ac_old in zip(self.info.Ps, self.info.Rs,
+                                self.info.csr_levels[1:]):
+            D = (R @ D @ P).tocsr()
+            Ac = (Ac_old + D).tocsr()
+            Ac.sort_indices()
+            levels.append(Ac)
+        self.info.csr_levels = levels
+        self._redevicify(snap)
+        return self
+
+    def _snapshot(self):
+        """(hierarchy, csrs, Ps, Rs) before an update changes info: the
+        reuse baseline of devicify's lazy path."""
+        return (self.hierarchy, list(self.info.csr_levels),
+                list(self.info.Ps), list(self.info.Rs))
+
+    def _redevicify(self, old) -> None:
+        """Rebuild the device levels after a host-CSR refresh, reusing what
+        the refresh left unchanged (devicify's ``reuse``): an update1
+        uploads one level's values instead of running each level's Lanczos
+        and strip planning again."""
+        self.hierarchy, info = _hier.devicify(
+            self.info.csr_levels, self.info.Ps, self.info.Rs, self.opts,
+            dtype=self.dtype, device=self.device, reuse=old)
+        info.thetas, info.coarsen_kinds = self.info.thetas, self.info.coarsen_kinds
+        info.comm, info.n_shards = self.info.comm, self.info.n_shards
+        self.info = info
+
+    def matrix_diff(self, A: Matrix, B: Matrix) -> float:
+        """Largest absolute entry of A - B."""
+        d = A.csr - B.csr
+        return float(np.abs(d.data).max()) if d.nnz else 0.0

@@ -3,10 +3,10 @@
 One dataclass carries every option of the reference's configuration surface
 (`saena::options`, saena.hpp:127-193, plus the public members of
 saena_object.h). Field names and defaults are those of `saena_tpu.config`;
-the JSON/XML loaders are not ported yet. Fields that select machinery the
-port does not have yet (`rap="device"`, `setup_shards`, the sharded-path
-policy) are accepted for parity and documented where the port reads them;
-`structural_transfers` is read by amg/hierarchy.py.
+the JSON/XML loaders are not ported yet. `setup_shards` is read by
+`AMG.set_matrix` (api.py), `structural_transfers` by amg/hierarchy.py.
+Fields that select machinery the port does not have yet (`rap="device"`,
+`smooth_dtype`, the sharded-path policy) are accepted for parity.
 """
 from __future__ import annotations
 
@@ -105,14 +105,16 @@ class Options:
                                        # keep f32 (their Pallas kernel is
                                        # f32-tiled and already ~6x cheaper
                                        # than the mid-level smoothers)
-    rap: str = "host"                  # Galerkin engine: "host" (torch-MKL
-                                       # SpGEMM, the mkl_dcsrmultcsr analog) |
+    rap: str = "host"                  # Galerkin engine: "host" (native
+                                       # Gustavson SpGEMM, the
+                                       # mkl_dcsrmultcsr analog) |
                                        # "device" (block-sparse MXU engine,
                                        # ops/bspgemm.py — FLOPs on the
                                        # accelerator, memory ∝ nonzero blocks;
                                        # the fast_mm re-design)
-    setup_shards: int = -1             # DEFAULT -1 (auto, one shard per
-                                       # core): run the SHARD-PARALLEL setup
+    setup_shards: int = -1             # DEFAULT -1 (auto, one shard per 4
+                                       # cores, dist_setup.default_shards):
+                                       # run the SHARD-PARALLEL setup
                                        # (parallel/dist_setup.py — per-phase
                                        # row-block tasks with metered halo
                                        # exchanges, the reference's rank-

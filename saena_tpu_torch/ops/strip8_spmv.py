@@ -9,9 +9,13 @@ sublanes gathers from its own 128-column strip of x:
 
 - general mode: ``strips[t * 8 + i]`` is sublane i's strip;
 - interval mode: ``strips[t]`` is a base and sublane i reads ``base + i``
-  (strips past the end of x read zeros). The port's planner makes general
-  layouts only; interval layouts come from the JAX package's native
-  planner, carried across with ``convert``.
+  (strips past the end of x read zeros).
+
+The planner sweeps (perrow, mode) and keeps the layout of the least
+modelled time, its real tiles weighted by the mode's H100 cost per tile
+(``STRIP8_NS_PER_TILE``). Both modes come from the native planner
+(_native/strip8plan.cpp); without a toolchain the numpy version plans the
+general mode only.
 
 ``gather_idx[rb]`` lists the row block's tiles, padded with ``n_tiles_pad``.
 When the matrix is built, ``tile_list`` lists the real tiles in row-block
@@ -32,11 +36,11 @@ the port's planner builds; the kernel then skips the tile_list lookup.
 `strip8_spmv` launches the CUDA kernel (csrc/strip8_spmv.cu) for tensors
 on the card, on the layout's path, and runs `strip8_spmv_plain` for
 tensors on the CPU; it never falls back from one to the other. `launches`
-counts kernel launches, `stream_launches` those of the stream path.
+counts kernel launches, `stream_launches` those of the stream path,
+`interval_launches` those of interval-mode layouts.
 
-Cost constants (``STRIP8_NS_PER_TILE``, ``_COST_GENERAL``,
-``_COST_INTERVAL``) are H100 measurements from ``chip_smoke.py`` phase 4;
-see PERF.md.
+The cost constants (``STRIP8_NS_PER_TILE``) are H100 measurements from
+``chip_smoke.py`` phase 4; see PERF.md.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from saena_tpu_torch import _native
 from saena_tpu_torch.ops import cuda_build
 from saena_tpu_torch.ops import chunks
 from saena_tpu_torch.ops.chunks import ChunkTables
@@ -65,6 +70,7 @@ _PERROW8 = (1, 2, 4)
 MODES = ("general", "interval")
 launches = 0          # kernel launches made by strip8_spmv, both paths
 stream_launches = 0   # of which the stream path's
+interval_launches = 0  # of which on interval-mode layouts
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 2}
 # The two paths of the kernel (csrc/strip8_spmv.cu). The rows path gives a
@@ -215,7 +221,7 @@ def strip8_spmv(A: Strip8Matrix, x: torch.Tensor) -> torch.Tensor:
 
 
 def _strip8_cuda(A: Strip8Matrix, x):
-    global launches, stream_launches
+    global launches, stream_launches, interval_launches
     dev = A.vals.device
     if A.dtype not in _DTYPE_CODE:
         raise TypeError(f"strip8_spmv: values dtype {A.dtype} not supported "
@@ -283,11 +289,12 @@ def _strip8_cuda(A: Strip8Matrix, x):
         raise RuntimeError(f"strip8_spmv: kernel launch failed with CUDA error {rc}")
     launches += 1
     stream_launches += C is not None
+    interval_launches += A.mode == "interval"
     return y
 
 
 # ---------------------------------------------------------------------------
-# host planner (numpy, general mode)
+# host planner (native, both modes; numpy for the general mode)
 # ---------------------------------------------------------------------------
 
 # H100 cost model, measured by chip_smoke.py phase 4 on NVIDIA H100 80GB
@@ -297,8 +304,6 @@ def _strip8_cuda(A: Strip8Matrix, x):
 # about the same tile count (both on the rows path, which the wrapper picks
 # for them). The planner weighs tile counts by the same per-tile costs.
 STRIP8_NS_PER_TILE = {"general": 2.24, "interval": 1.99}
-_COST_GENERAL = STRIP8_NS_PER_TILE["general"]
-_COST_INTERVAL = STRIP8_NS_PER_TILE["interval"]
 
 # above this nnz the candidate sweep ranks on a stratified row sample and
 # only the winner gets the full-pattern plan
@@ -307,23 +312,39 @@ SAMPLE_SWEEP_NNZ = 500_000
 _MEMO = "_saena_torch_strip8_plan"
 
 
-def _plan8_one(row, col, n, m, perrow):
-    """General-mode plan for one perrow candidate."""
+def _plan8_one(row, col, n, m, perrow, mode="general"):
+    """Plan of one (perrow, mode) candidate from (row, col)-sorted entries:
+    the native core, or the numpy version for the general mode. None when
+    no plan of that mode can be made here (interval mode without a
+    toolchain)."""
     Q = 128 // perrow
     n_rb = pad_to(n, Q) // Q
     n_strips = pad_to(m) // 128
-    e_tile, e_sub, e_krem, tile_strips, rb_tiles = _plan8_numpy(
-        row.astype(np.int64), col.astype(np.int64), n_rb, n_strips, perrow)
+    core = _native.strip8i_plan_core if mode == "interval" \
+        else _native.strip8_plan_core
+    nat = core(row, col, n_rb, n_strips, perrow)
+    if nat is None:
+        if mode == "interval":
+            return None
+        nat = _plan8_numpy(row.astype(np.int64), col.astype(np.int64),
+                           n_rb, n_strips, perrow)
+    e_tile, e_sub, e_krem, tile_strips, rb_tiles = nat
     return (e_tile, e_sub, e_krem, tile_strips, rb_tiles, n_rb, n_strips,
-            perrow, "general")
+            perrow, mode)
+
+
+def _plan_cost(plan) -> float:
+    """Modelled ns of a plan: real tiles at its mode's cost per tile."""
+    return plan[3].shape[0] * STRIP8_NS_PER_TILE[plan[8]]
 
 
 def _plan8(A: sp.spmatrix, timer=None):
-    """(coo, plan) of the cheapest general-mode layout over the perrow
-    candidates, tiles weighted by their per-tile cost. Large operators rank
-    the candidates on a stratified sample (every 8th 1024-row segment, rows
-    rebased) and plan only the winner in full. Memoized on the matrix
-    object keyed by (shape, nnz)."""
+    """(coo, plan) of the layout of least modelled time over the (perrow,
+    mode) candidates. Large operators rank the candidates on a stratified
+    sample (every 8th 1024-row segment, rows rebased, whole segments so
+    the row-block structure survives) and plan only the winner in full,
+    the next-ranked one if the full pattern rejects it. Memoized on the
+    matrix object keyed by (shape, nnz)."""
     t0 = time.perf_counter()
     A = A.tocsr()
     key = (A.shape, A.nnz)
@@ -336,24 +357,32 @@ def _plan8(A: sp.spmatrix, timer=None):
         A.sort_indices()
     n, m = A.shape
     coo = A.tocoo()
-    cands = list(_PERROW8)
+    cands = [(pr, mode) for pr in _PERROW8 for mode in ("interval", "general")]
+    best = None
     if coo.nnz > SAMPLE_SWEEP_NNZ:
         seg_len, stride = 1024, 8
         seg = coo.row // seg_len
         keep = (seg % stride) == 0
         if keep.any() and not keep.all():
             srow = (seg[keep] // stride) * seg_len + coo.row[keep] % seg_len
+            scol = coo.col[keep]
             n_s = min(n, int(((n - 1) // seg_len // stride) * seg_len + seg_len))
-            ranked = sorted(
-                (_plan8_one(srow, coo.col[keep], n_s, m, pr)[3].shape[0], pr)
-                for pr in cands)
-            cands = [ranked[0][1]]
-    best = None
-    for pr in cands:
-        p = _plan8_one(coo.row, coo.col, n, m, pr)
-        cost = p[3].shape[0] * _COST_GENERAL
-        if best is None or cost < best[0]:
-            best = (cost, p)
+            ranked = []
+            for pr, mode in cands:
+                p = _plan8_one(srow, scol, n_s, m, pr, mode)
+                if p is not None:
+                    ranked.append((_plan_cost(p), pr, mode))
+            ranked.sort()
+            for _, pr, mode in ranked:
+                p = _plan8_one(coo.row, coo.col, n, m, pr, mode)
+                if p is not None:
+                    best = (_plan_cost(p), p)
+                    break
+    if best is None:
+        for pr, mode in cands:
+            p = _plan8_one(coo.row, coo.col, n, m, pr, mode)
+            if p is not None and (best is None or _plan_cost(p) < best[0]):
+                best = (_plan_cost(p), p)
     res = (coo, best[1])
     try:
         setattr(orig, _MEMO, (key, res))
@@ -417,9 +446,9 @@ def _padded_tiles(n_tiles: int) -> int:
 
 
 def strip8_from_csr(A: sp.spmatrix, dtype, device, perrow=None,
-                    timer=None) -> Strip8Matrix:
-    """Host conversion CSR -> multi-strip tiles (general mode; the planner
-    picks perrow unless it is forced)."""
+                    mode="general", timer=None) -> Strip8Matrix:
+    """Host conversion CSR -> multi-strip tiles: the planner picks perrow
+    and mode, unless ``perrow`` is forced, which plans ``mode`` at it."""
     A = A.tocsr()
     n, m = A.shape
     if perrow is None:
@@ -429,7 +458,10 @@ def strip8_from_csr(A: sp.spmatrix, dtype, device, perrow=None,
             A = A.copy()
             A.sort_indices()
         coo = A.tocoo()
-        plan = _plan8_one(coo.row, coo.col, n, m, perrow)
+        plan = _plan8_one(coo.row, coo.col, n, m, perrow, mode)
+        if plan is None:
+            raise RuntimeError(f"no {mode}-mode strip8 plan without the "
+                               "native planner")
     (e_tile, e_sub, e_krem, tile_strips, rb_tiles, n_rb, n_strips,
      perrow, mode) = plan
     Q = 128 // perrow
@@ -438,9 +470,10 @@ def strip8_from_csr(A: sp.spmatrix, dtype, device, perrow=None,
 
     idx = np.zeros((n_tiles_pad, 8, 128), dtype=np.int8)
     vals = np.zeros((n_tiles_pad, 8, 128), dtype=_NP_FLOAT.get(dtype, np.float64))
-    strips = np.zeros(n_tiles_pad * 8, dtype=np.int32)
+    strips = np.zeros(n_tiles_pad if mode == "interval" else n_tiles_pad * 8,
+                      dtype=np.int32)
     if n_tiles:
-        strips[: n_tiles * 8] = tile_strips.reshape(-1)
+        strips[: tile_strips.size] = tile_strips.reshape(-1)
         lane = e_krem.astype(np.int64) * Q + coo.row % Q
         flat = (e_tile.astype(np.int64) * 8 + e_sub) * 128 + lane
         idx.reshape(-1)[flat] = (coo.col % 128).astype(np.int8)

@@ -42,6 +42,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from saena_tpu_torch import _native
 from saena_tpu_torch.ops import cuda_build
 from saena_tpu_torch.ops import chunks
 from saena_tpu_torch.ops.chunks import ChunkTables
@@ -274,7 +275,7 @@ def _strip_cuda(A: StripMatrix, x):
 
 
 # ---------------------------------------------------------------------------
-# host planner (numpy; saena_tpu's native planner is not ported)
+# host planner (native pair assignment, numpy where no toolchain exists)
 # ---------------------------------------------------------------------------
 
 # H100 cost model, measured by chip_smoke.py phase 4 on NVIDIA H100 80GB
@@ -290,15 +291,8 @@ STRIP_NS_BY_PERROW = {1: 3.63, 2: 3.65, 4: 2.43, 8: 2.27, 16: 2.59}
 STRIP_LAUNCH_S = 7.07e-6
 
 
-def _plan(row, col, n, m, perrow):
-    """Pair layout for one perrow candidate: (pair_rb, pair_strip, slot,
-    inv) as the JAX package's numpy branch computes them, krb by modelled
-    time, the padded pair count and the score."""
-    rpt = _rpt(perrow)
-    n_strips = pad_to(m) // 128
-    n_rows_pad = pad_to(n, rpt)
-    n_rb = n_rows_pad // rpt
-
+def _plan_pairs_numpy(row, col, rpt, n_strips, n_rows_pad, perrow):
+    """(slot, inv, pair_rb, pair_strip) of the strip planner in numpy."""
     rb = row // rpt
     strip = col // 128
     # per (rb, strip, row) running slot index k; entries with k >= perrow
@@ -325,6 +319,29 @@ def _plan(row, col, n, m, perrow):
         inv = np.array([], dtype=np.int64)
     pair_rb = (uniq // (cap * n_strips)).astype(np.int64)
     pair_strip = ((uniq // cap) % n_strips).astype(np.int32)
+    return slot, inv, pair_rb, pair_strip
+
+
+def _plan(row, col, n, m, perrow):
+    """Pair layout for one perrow candidate: (pair_rb, pair_strip, slot,
+    inv) from the native planner core or its numpy version, krb by
+    modelled time, the padded pair count and the score."""
+    rpt = _rpt(perrow)
+    n_strips = pad_to(m) // 128
+    n_rows_pad = pad_to(n, rpt)
+    n_rb = n_rows_pad // rpt
+
+    # entry -> (slot within row, pair id) and the sorted unique pairs: the
+    # native core (stripplan.cpp, O(nnz) on (row, col)-sorted entries), or
+    # the numpy version for unsorted input and without a toolchain
+    nat = _native.strip_plan_core(row, col, rpt, n_strips, perrow) \
+        if row.size else None
+    if nat is not None:
+        slot, inv, pair_rb, pair_strip = nat
+        pair_rb = pair_rb.astype(np.int64)
+    else:
+        slot, inv, pair_rb, pair_strip = _plan_pairs_numpy(
+            row, col, rpt, n_strips, n_rows_pad, perrow)
 
     best = None
     for krb in _KRB_CANDIDATES:
