@@ -37,7 +37,10 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
      twice, and with x a view that is not 16-byte aligned: the results must
      agree bit for bit, and the tickets must be left zero.
 3. The main path on the card, launch counters zeroed just before each run
-   and read just after:
+   and read just after. The solves (pCG, solve, solve_smoother, solve_CG)
+   replay CUDA graphs of their loop body, captured at a hierarchy's first
+   solve; the wrappers' counters count a replay's launches as the
+   uncaptured loop makes them.
    (a) the 48^3 Poisson pCG solve through Matrix/AMG
        (Options(remove_boundary=True), so the default shard-parallel host
        setup) with the formats the port's picker chooses on the card. f64
@@ -65,7 +68,20 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
        diagonal), update3 (three diagonal entries), a pCG solve after each,
        held against the same sequence on that CPU hierarchy (equal
        iterations, histories at rtol 1e-6); update1 must reuse every level
-       below 0, the eig values and the coarse LU.
+       below 0, the eig values and the coarse LU, and each solve after an
+       update must capture its graphs anew.
+   (f) the graph solves of (a) f64 and f32 and (b), each against the same
+       loop run uncaptured on the card: equal iterations, history and u bit
+       for bit, equal launches by kernel, path and K1 shape; the golden (f64)
+       or rel_res < 1e-8 (f32); the ms of 20 solves of each (median, min,
+       max, CUDA events, after a warm solve), the first solve's capture ms,
+       and the device's busy ms and idle share in one solve of each from a
+       torch.profiler trace (written to chiprun_out/traces/). Then pCG with
+       direct_solver="CG" (the coarsest CG inside the graph) against the CPU
+       twin, the profiles of the f32 hierarchy (profile_matvecs,
+       model_check, vcycle_breakdown per level, pcg_profile), and a capture
+       with a host copy, which must raise GraphCaptureError naming the op
+       while the card works on.
    Every kernel must have launched in phase 3, the strip and strip8
    kernels on both of their paths, the DIA kernel in both of its designs:
    the tiled kernel for every operator of more than 8 diagonals (level 1),
@@ -134,34 +150,8 @@ def card_line() -> str:
 
 
 # ---------------------------------------------------------------- timing --
-
-
-def graph_ms(fn, reps: int = 100, replays: int = 20) -> float:
-    """Device ms per call: ``reps`` calls captured in one CUDA graph and
-    replayed, timed with CUDA events (no host launch gaps between calls)."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(reps):
-            fn()
-    for _ in range(max(1, replays // 4)):     # warm: clocks up after host work
-        g.replay()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(replays):
-        g.replay()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / (reps * replays)
+# graph_ms (device ms per call, graph-replayed, CUDA events) is
+# saena_tpu_torch.profiling.graph_ms, imported where it is used
 
 
 def eager_ms(fn, reps: int = 200) -> float:
@@ -902,13 +892,18 @@ def lazy_updates(solver, cpu):
         torch.cuda.synchronize()
         upd_s = time.perf_counter() - t0
         getattr(cpu, name)(matrix(A, "cpu"))
+        H1 = solver.hierarchy
+        fresh = not H1.graphs          # the update dropped the graphs
         (u, res), ms, launched = timed(solver.solve_pCG)
         _, ref = cpu.solve_pCG()
-        H1 = solver.hierarchy
         r = {"update": name, "update_s": upd_s, "iters": res.iters,
              "cpu_iters": ref.iters, "rel_res": float(res.rel_res),
              "solve_ms": ms, "launches": launched,
-             "formats": level_formats(H1)}
+             "formats": level_formats(H1),
+             "recaptured": fresh and any(L.graphs is not None
+                                         for L in H1.graphs.values())}
+        if not r["recaptured"]:
+            bad = bad or f"{name}: the solve after it was not captured anew"
         if name == "update1":
             r["reused_levels"] = all(H1.levels[l] is H0.levels[l]
                                      for l in range(1, H0.n_levels))
@@ -925,6 +920,161 @@ def lazy_updates(solver, cpu):
         rows.append(r)
         print("  " + json.dumps(r))
     return rows, bad
+
+
+# ------------------------------------------------ phase 3f: graph solves --
+
+SPREAD_REPS = 20                    # solves timed per kind and loop
+
+
+def eager_pcg(H, rhs, **kw):
+    """pCG with its loop body called directly on the card, no graph: the
+    uncaptured loop the graph replays are held against."""
+    from saena_tpu_torch.amg import solvers
+
+    return solvers._solve(solvers._pcg, H, rhs, graphs=False, **kw)
+
+
+def launch_delta(fn):
+    """(fn(), the launches it made by counter and by K1 shape)."""
+    from saena_tpu_torch.amg.graphs import counts
+
+    (i0, s0), out, (i1, s1) = counts(), fn(), counts()
+    d = {f"{m.__name__.rsplit('.', 1)[1]}.{a}": i1[(m, a)] - v
+         for (m, a), v in i0.items()}
+    d.update({f"{k[0]}x{k[1]} {k[2]}": v - s0.get(k, 0)
+              for k, v in s1.items() if v != s0.get(k, 0)})
+    return out, d
+
+
+def spread(fn, reps: int = SPREAD_REPS) -> dict:
+    """ms of ``reps`` calls of ``fn`` after a warm call, each by CUDA
+    events: median, min, max."""
+    import torch
+
+    fn()
+    ms = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+    return {"median_ms": float(np.median(ms)), "min_ms": min(ms),
+            "max_ms": max(ms)}
+
+
+def graph_solve(solver, label, golden, logdir):
+    """Phase 3f on the solver's hierarchy: the pCG solve through graphs
+    against the same loop uncaptured (equal iterations, bit-equal history
+    and u, equal launches), the golden or the f32 bound, the spread of
+    SPREAD_REPS solves of each, the capture time and the device-idle share
+    of one solve of each from a profiler trace. Returns (row, failure or
+    None)."""
+    from saena_tpu_torch import profiling
+    from saena_tpu_torch.amg import solvers
+
+    H = solver.hierarchy
+    (ug, rg), lg = launch_delta(solver.solve_pCG)
+    (ue, re_), le = launch_delta(lambda: solver._run(eager_pcg))
+    loop = H.graphs[("_pcg", solver.params, H.dtype, solver.opts.max_iter)]
+    it = rg.iters
+    row = {"run": label, "dtype": str(solver.dtype), "iters": it,
+           "eager_iters": re_.iters, "rel_res": float(rg.rel_res),
+           "capture_ms": loop.capture_ms, "launches_graph": lg,
+           "launches_eager": le}
+    bad = None
+    if rg.iters != re_.iters:
+        bad = f"graph {rg.iters} != uncaptured {re_.iters} iterations"
+    elif not (np.array_equal(ug, ue) and
+              np.array_equal(rg.history[: it + 1].cpu().numpy(),
+                             re_.history[: it + 1].cpu().numpy())):
+        d = np.max(np.abs(ug - ue)) / np.max(np.abs(ue))
+        bad = f"graph and uncaptured solves differ (u by {d:.3e} relative)"
+    elif lg != le:
+        bad = f"launches a solve: graph {lg} != uncaptured {le}"
+    elif golden is not None:
+        gh = np.asarray(golden["history"])
+        hist = rg.history[: it + 1].cpu().numpy()
+        if it != golden["iters"] or not np.allclose(hist, gh, rtol=1e-6, atol=0.0):
+            bad = f"graph solve off the golden: {it} iterations, {hist}"
+    elif not (float(rg.rel_res) < 1e-8 and it <= 100):
+        bad = f"f32 graph solve: rel_res {float(rg.rel_res):.3e} after {it}"
+    row["eager"] = spread(lambda: solver._run(eager_pcg))
+    row["graph"] = spread(solver.solve_pCG)
+    for kind, fn in (("eager", lambda: solver._run(eager_pcg)),
+                     ("graph", solver.solve_pCG)):
+        _, path = profiling.trace(fn, os.path.join(logdir, label),
+                                  f"{kind}_pCG", H.device)
+        busy = row[f"{kind}_trace"] = profiling.device_busy(path, f"{kind}_pCG")
+        # the profiler's own host cost widens the traced window; the
+        # device's busy time against the untraced median is the other view
+        busy["idle_vs_median"] = 1.0 - busy["busy_ms"] / row[kind]["median_ms"]
+    print("  " + json.dumps(row))
+    return row, bad
+
+
+def coarse_cg(solver, cpu):
+    """pCG with direct_solver="CG" (the coarsest CG inside the captured
+    V-cycle) on the card and on the CPU twin: equal iterations, histories
+    at rtol 1e-6. Returns (row, failure or None)."""
+    saved = solver.params
+    solver.params = cpu.params = dataclasses.replace(saved, direct_solver="CG")
+    try:
+        (u, res), ms, launched = timed(solver.solve_pCG)
+        _, ref = cpu.solve_pCG()
+    finally:
+        solver.params = cpu.params = saved
+    row = {"entry": "solve_pCG", "direct_solver": "CG", "iters": res.iters,
+           "cpu_iters": ref.iters, "rel_res": float(res.rel_res), "ms": ms,
+           "launches": launched}
+    print("  " + json.dumps(row))
+    return row, agree(res, ref) or (None if np.isfinite(u).all() else "non-finite u")
+
+
+def capture_failure(dev):
+    """A part that syncs with the host (Matrix.matvec copies from host
+    memory) must raise GraphCaptureError naming the op; the card must work
+    on afterwards. Returns (message, failure or None)."""
+    import torch
+
+    from saena_tpu_torch import Matrix, generators
+    from saena_tpu_torch.amg.graphs import Graph, GraphCaptureError
+
+    A = Matrix()
+    A.set_csr(generators.laplacian3D(8, 8, 8))
+    A.assemble(device=dev, dtype=torch.float64)
+    v = np.ones(A.get_num_rows())
+    try:
+        Graph(lambda: A.matvec(v), "a host copy")
+    except GraphCaptureError as e:
+        msg = str(e)
+    else:
+        return None, "a capture with a host copy did not raise"
+    ok = np.allclose(A.matvec(v), A.csr @ v)
+    return msg, (None if ok and "saena_tpu_torch/api.py" in msg else
+                 f"after a failed capture: matvec ok {ok}, message {msg!r}")
+
+
+def profiles(solver):
+    """profile_matvecs, model_check, vcycle_breakdown(per_level=True) and
+    pcg_profile of the solver's hierarchy (20 calls a timing)."""
+    from saena_tpu_torch import profiling as P
+
+    H = solver.hierarchy
+    rhs = np.zeros(H.n_pad)
+    rhs[: H.n] = 1.0
+    bd = P.vcycle_breakdown(H, solver.params, rhs, n_iter=20, per_level=True)
+    out = {"profile_matvecs": P.profile_matvecs(H, n_iter=20),
+           "model_check": P.model_check(H, n_iter=20),
+           "vcycle_breakdown": bd,
+           "pcg_profile": P.pcg_profile(H, solver.params, n_iter=20)}
+    for k, v in out.items():
+        print(f"  {k}: " + json.dumps(v))
+    print("  " + P.format_breakdown(bd).replace("\n", "\n  "))
+    return out
 
 
 # ---------------------------------------------------------- phase 4: times --
@@ -944,6 +1094,8 @@ def time_dia(dev, ops, per_shape: dict) -> list:
     SpMV, the bound, and launches per solve from ``per_shape`` ({dtype
     name: {"<n_pad>x<ndiag> <variant>": launches}}, the phase-3 solves).
     Returns rows of dicts."""
+    from saena_tpu_torch.profiling import graph_ms
+
     import torch
 
     from saena_tpu_torch.ops import dia_spmv as dmod
@@ -1081,6 +1233,8 @@ def time_gather(dev, case, kind, M64, A_host, plain=True, library=True,
     """Kernel (and plain, cuSPARSE) ms of one strip/strip8 layout in f32, on
     the path its wrapper picks (``ms``) and on each path (``rows_ms``,
     ``stream_ms``)."""
+    from saena_tpu_torch.profiling import graph_ms
+
     import torch
 
     from saena_tpu_torch.ops import strip8_spmv as s8
@@ -1158,7 +1312,8 @@ def solve_gather_ops(solver) -> list:
 
 def launches_per_operator(solver) -> dict:
     """{id(layout): kernel launches in one pCG solve}, counted by wrapping
-    the gather wrappers for one solve."""
+    the gather wrappers for one solve of the uncaptured loop (a graph
+    replay calls no wrapper; phase 3f shows the two launch the same)."""
     import torch
 
     from saena_tpu_torch.ops import strip8_spmv as s8
@@ -1175,7 +1330,7 @@ def launches_per_operator(solver) -> dict:
 
     s1.strip_spmv, s8.strip8_spmv = counting(saved[0]), counting(saved[1])
     try:
-        solver.solve_pCG()
+        solver._run(eager_pcg)
         torch.cuda.synchronize()
     finally:
         s1.strip_spmv, s8.strip8_spmv = saved
@@ -1207,6 +1362,8 @@ def tiny_operator():
 
 def fit_constants(dev, ops, rows) -> dict:
     """The picker's H100 cost constants from this run's times (f32)."""
+    from saena_tpu_torch.profiling import graph_ms
+
     import torch
 
     from saena_tpu_torch.ops.formats import bsr_from_csr, pad_to
@@ -1373,7 +1530,7 @@ def main() -> int:
     print("[3a] picker estimates (f32, µs): " + json.dumps(est))
     print(f"[3b] forced path f64, {M}^3: Pt strip, Pt^T strip8, level-2 A the other")
     picker64 = solver64.hierarchy
-    solver64.hierarchy = forced_hierarchy(solver64)
+    forced64 = solver64.hierarchy = forced_hierarchy(solver64)
     zero()
     rep_b, bad = run_solve(solver64, dev, golden, "forced")
     launches_b, bad_count = read()
@@ -1402,14 +1559,49 @@ def main() -> int:
     if bad or bad32 or bad_count:
         return fail(f"entry points: {bad or bad32 or bad_count}")
     print(f"[3d] launches: {launches_d}")
+    loops = {k[0] for k, L in solver64.hierarchy.graphs.items() if L.graphs}
+    if not {"_vcycle_iter", "_smoother_iter", "_cg"} <= loops:
+        return fail(f"phase 3d's loops did not run through graphs: {sorted(loops)}")
     print(f"[3e] lazy updates on the card, f64, against the same sequence on the CPU")
+    saved64 = [(sv, sv.hierarchy, sv._bound) for sv in (solver64, cpu64)]
     zero()
     lazy, bad = lazy_updates(solver64, cpu64)
     launches_e, bad_count = read()
     if bad or bad_count:
         return fail(f"lazy updates: {bad or bad_count}")
     print(f"[3e] launches: {launches_e}")
-    for extra in (launches_d, launches_e):
+    for sv, H, bound in saved64:                 # back to the phase-3a state
+        sv.hierarchy, sv._bound = H, bound
+
+    print(f"[3f] the {M}^3 solves as graph replays against the uncaptured loop "
+          f"({SPREAD_REPS} solves each), the coarsest CG in the graph, a "
+          f"failed capture, the f32 profiles; {card}")
+    t3f = time.perf_counter()
+    logdir = os.path.join(ROOT, "chiprun_out", "traces")
+    zero()
+    graph_rows = []
+    for solver, H, label, g in ((solver64, picker64, "f64_picker", golden),
+                                (solver32, solver32.hierarchy, "f32_picker", None),
+                                (solver64, forced64, "f64_forced", golden)):
+        solver.hierarchy = H
+        row, bad = graph_solve(solver, label, g, logdir)
+        graph_rows.append(row)
+        if bad:
+            return fail(f"graph solve {label}: {bad}")
+    solver64.hierarchy = picker64
+    cg_row, bad = coarse_cg(solver64, cpu64)
+    if bad:
+        return fail(f"pCG with the coarsest CG in the graph: {bad}")
+    prof32 = profiles(solver32)
+    msg, bad = capture_failure(dev)
+    if bad:
+        return fail(f"capture failure: {bad}")
+    print(f"  a failed capture raised: {msg}")
+    launches_f, bad_count = read()
+    if bad_count:
+        return fail(f"graph solves: {bad_count}")
+    print(f"[3f] launches: {launches_f}; wall {time.perf_counter() - t3f:.1f} s")
+    for extra in (launches_d, launches_e, launches_f):
         launches = {k: launches[k] + extra[k] for k in launches}
     print(f"[3] launches on the main path: {launches}")
     # every kernel and both paths of K2 and K3 (either strip8 mode will do)
@@ -1419,6 +1611,7 @@ def main() -> int:
 
     # ---- 4. times
     print("[4] times (ms per call; bound = max(bytes/HBM, ops/peak))")
+    from saena_tpu_torch.profiling import graph_ms
     floor = graph_ms(lambda: dia_mod.empty_launch(dev))
     print(f"  launch floor (empty kernel, graph-replayed): {floor * 1e3:.3f} µs")
     times = time_dia(dev, ops, per_shape)

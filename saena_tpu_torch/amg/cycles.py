@@ -17,23 +17,25 @@ from saena_tpu_torch.amg.smoothers import smooth
 
 def coarsest_cg(A, u, rhs, max_iter: int, tol: float):
     """Matvec-only CG for the coarsest level (ref solve_coarsest_CG,
-    solve.cpp:14-114): iterate until ||r|| < tol * ||r0|| or max_iter. The
-    loop condition syncs with the host once per iteration."""
+    solve.cpp:14-114): until ||r|| <= tol * ||r0|| or max_iter. It runs a
+    fixed ``max_iter`` iterations with no host sync, each frozen
+    (``torch.where``) once the test has stopped it, so that it lives inside
+    a captured V-cycle; the result is that of the JAX package's
+    ``while_loop`` (saena_tpu/amg/cycles.py:24-46)."""
     r = rhs - A.matvec(u).to(rhs.dtype)
     rr = torch.dot(r, r)
     thr = rr * tol * tol
     p = r
-    i = 0
-    while i < max_iter and bool(rr > thr):
+    for _ in range(max_iter):
+        go = rr > thr
         h = A.matvec(p).to(rhs.dtype)
         alpha = rr / torch.dot(p, h)
-        u = u + alpha * p
-        r = r - alpha * h
-        rr_new = torch.dot(r, r)
-        beta = rr_new / rr
-        p = r + beta * p
-        rr = rr_new
-        i += 1
+        u_n = u + alpha * p
+        r_n = r - alpha * h
+        rr_n = torch.dot(r_n, r_n)
+        p_n = r_n + (rr_n / rr) * p
+        u, r, p, rr = (torch.where(go, new, old) for new, old in
+                       ((u_n, u), (r_n, r), (p_n, p), (rr_n, rr)))
     return u
 
 

@@ -1,0 +1,222 @@
+"""Solver loops as CUDA graph replays: the port's counterpart of the JAX
+package's ``jax.jit`` over ``lax.while_loop`` (saena_tpu/amg/solvers.py).
+
+A solver is a ``Loop``: static tensors that hold its whole state (the
+iterate, residuals, scalars, the history, the iteration counter and the
+stop flag ``go``) and three parts that read and write them in place:
+
+- ``init`` sets the state from the ``rhs`` and ``tol`` buffers;
+- ``step`` is one iteration. It makes no host sync, and once ``go`` has
+  dropped it leaves every state tensor as it is (``torch.where``), as a
+  ``while_loop`` that has exited does;
+- ``fini`` computes the exit values.
+
+``run`` calls ``init``, then ``step`` while the host reads ``go`` as true
+(one sync an iteration, the stopping test), then ``fini``. On the card the
+parts are captured into ``torch.cuda.CUDAGraph``s at the first run and
+replayed after; on the CPU the same parts are called directly. A capture
+that fails raises ``GraphCaptureError`` naming the op that broke it; there
+is no fallback to the uncaptured loop.
+
+The kernels' wrappers count their launches in Python, which a replay does
+not run. Each graph keeps the counts its capture added, the counters are
+put back, and every replay adds them again, so the counts are those of the
+same loop run without graphs.
+"""
+from __future__ import annotations
+
+import os
+import time
+import traceback
+import types
+
+import torch
+
+from saena_tpu_torch.ops import dia_spmv, strip8_spmv, strip_spmv
+
+# the wrappers' launch counters: (module, integer counters); the DIA
+# wrapper's launches by shape are a dict, dia_spmv.shape_launches
+_COUNTERS = ((dia_spmv, ("launches", "rows_launches")),
+             (strip_spmv, ("launches", "stream_launches")),
+             (strip8_spmv, ("launches", "stream_launches", "interval_launches")))
+
+_PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+class GraphCaptureError(RuntimeError):
+    """A part of a solver loop could not be captured into a CUDA graph."""
+
+
+def counts() -> tuple:
+    """The wrappers' launch counters as they stand."""
+    return ({(m, a): getattr(m, a) for m, names in _COUNTERS for a in names},
+            dict(dia_spmv.shape_launches))
+
+
+def restore(saved) -> None:
+    """Set the launch counters back to ``saved`` (from ``counts``)."""
+    ints, shapes = saved
+    for (m, a), v in ints.items():
+        setattr(m, a, v)
+    dia_spmv.shape_launches.clear()
+    dia_spmv.shape_launches.update(shapes)
+
+
+def _delta(before, after) -> tuple:
+    ints = {k: after[0][k] - v for k, v in before[0].items() if after[0][k] != v}
+    shapes = {k: v - before[1].get(k, 0) for k, v in after[1].items()
+              if v != before[1].get(k, 0)}
+    return ints, shapes
+
+
+def _add(delta) -> None:
+    ints, shapes = delta
+    for (m, a), v in ints.items():
+        setattr(m, a, getattr(m, a) + v)
+    for k, v in shapes.items():
+        dia_spmv.shape_launches[k] = dia_spmv.shape_launches.get(k, 0) + v
+
+
+def _where(exc: BaseException) -> str:
+    """The deepest frame of the port's own code (this module aside) in the
+    exception chain: the op that broke the capture."""
+    here = os.path.abspath(__file__)
+    seen, e, best = set(), exc, None
+    while e is not None and id(e) not in seen:
+        seen.add(id(e))
+        for fr in traceback.extract_tb(e.__traceback__):
+            f = os.path.abspath(fr.filename)
+            if f.startswith(_PACKAGE) and f != here:
+                best = f"{os.path.relpath(f, os.path.dirname(_PACKAGE))}:{fr.lineno}: {fr.line}"
+        e = e.__cause__ or e.__context__
+    return best or "an op outside the package"
+
+
+class Graph:
+    """``fn`` captured on the card's current device, replayed by calling
+    the object; the launch counters move as if ``fn`` had run."""
+
+    def __init__(self, fn, what: str):
+        dev = torch.cuda.current_device()
+        before = counts()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.stream(side):
+                # worker threads of the setup may still touch the card:
+                # only this thread's calls are checked during the capture
+                self.graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    fn()
+                finally:
+                    self.graph.capture_end()
+        except RuntimeError as e:
+            restore(before)
+            raise GraphCaptureError(
+                f"capturing {what} failed at {_where(e)}: {e}") from e
+        finally:
+            torch.cuda.current_stream(dev).wait_stream(side)
+        self.delta = _delta(before, counts())
+        restore(before)
+
+    def __call__(self) -> None:
+        self.graph.replay()
+        _add(self.delta)
+
+
+class Loop:
+    """A solver's state (``s``, static tensors) and its three parts; see
+    the module docstring. ``capture_ms`` is the wall time of the first
+    run's warm-up and captures on the card, None before them."""
+
+    def __init__(self, state: types.SimpleNamespace, init, step, fini,
+                 name: str):
+        self.s = state
+        self.parts = (init, step, fini)
+        self.name = name
+        self.graphs = None
+        self.capture_ms = None
+
+    def _capture(self) -> None:
+        """Warm up each part once on a side stream (lazy module loads,
+        library handles), then capture it. The warm-up runs on the static
+        state, which the first replay of ``init`` sets anew; its launches
+        are taken off the counters."""
+        t0 = time.perf_counter()
+        dev = torch.cuda.current_device()
+        before = counts()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for part in self.parts:
+                part()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        restore(before)
+        self.graphs = tuple(Graph(p, f"{self.name} {w}") for p, w in
+                            zip(self.parts, ("init", "step", "fini")))
+        torch.cuda.synchronize(dev)
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+
+    def run(self, graphs: bool) -> int:
+        """Run the loop from the current ``rhs`` and ``tol`` buffers, as
+        graph replays when ``graphs``; returns the iterations taken."""
+        if graphs and self.graphs is None:
+            self._capture()
+        init, step, fini = self.graphs if graphs else self.parts
+        init()
+        iters = 0
+        while bool(self.s.go):          # the iteration's host sync
+            step()
+            iters += 1
+        fini()
+        return iters
+
+
+def new_state(rhs: torch.Tensor, max_iter: int, vectors=(), scalars=(),
+              flags=()) -> types.SimpleNamespace:
+    """Static buffers of a loop on ``rhs``'s device and dtype: ``rhs`` and
+    ``tol``, the named vectors (rhs's shape), scalars and boolean flags,
+    the history (max_iter + 1, NaN past the last iteration), the
+    iteration counter ``i`` and the stop flag ``go``."""
+    kw = dict(dtype=rhs.dtype, device=rhs.device)
+    s = types.SimpleNamespace(
+        rhs=torch.zeros_like(rhs), tol=torch.zeros((), **kw),
+        hist=torch.full((max_iter + 1,), float("nan"), **kw),
+        i=torch.zeros((), dtype=torch.int64, device=rhs.device),
+        go=torch.zeros((), dtype=torch.bool, device=rhs.device),
+        max_iter=max_iter)
+    for v in vectors:
+        setattr(s, v, torch.zeros_like(rhs))
+    for v in scalars:
+        setattr(s, v, torch.zeros((), **kw))
+    for v in flags:
+        setattr(s, v, torch.zeros((), dtype=torch.bool, device=rhs.device))
+    return s
+
+
+def start(s, res0, go) -> None:
+    """History from ||r0|| (``res0``), iteration 0, and the stop flag: go
+    on while ``go`` and iterations are left."""
+    s.hist.fill_(float("nan"))
+    s.hist[:1].copy_(res0.reshape(1))
+    s.i.zero_()
+    s.go.copy_(go & (s.max_iter > 0))
+
+
+def keep(go, *pairs) -> None:
+    """For each (state tensor, new value): take the new value while ``go``,
+    else leave the state as it is."""
+    for dst, new in pairs:
+        torch.where(go, new, dst, out=dst)
+
+
+def advance(s, go, res, more) -> None:
+    """End of an iteration that ran while ``go``: record ``res`` as the
+    history entry i + 1, count the iteration, and go on while ``more`` and
+    iterations are left. After the flag has dropped nothing changes."""
+    idx = torch.clamp(s.i + 1, max=s.max_iter).reshape(1)
+    old = s.hist.index_select(0, idx)
+    s.hist.index_copy_(0, idx, torch.where(go, res.reshape(1), old))
+    torch.where(go, s.i + 1, s.i, out=s.i)
+    s.go.copy_(go & more & (s.i < s.max_iter))

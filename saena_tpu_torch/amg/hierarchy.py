@@ -136,6 +136,12 @@ class Hierarchy:
     levels: tuple                            # tuple[Level, ...]
     coarse_lu: Optional[CoarseLU]
     inv_sq_diag: Optional[torch.Tensor]      # D^{-1/2} of the finest level when scaled
+    # the solvers' loops (amg/graphs.Loop), with their static buffers and,
+    # on the card, their captured graphs, by (solver, SolveParams, dtype,
+    # max_iter); not an init field, so a hierarchy made from another one
+    # (dataclasses.replace, devicify after an update) starts empty
+    graphs: dict = dataclasses.field(default_factory=dict, init=False,
+                                     repr=False, compare=False)
 
     @property
     def n_levels(self) -> int:
@@ -182,6 +188,9 @@ class SolveParams:
     direct_solver: str = "LU"
     CG_coarsest_max_iter: int = 150
     CG_coarsest_tol: float = 1e-12
+    # pCG: every k-th iteration replace the recursive residual by A u - rhs
+    # and restart the direction (beta = 0); 0 = never
+    residual_replace: int = 0
 
     @classmethod
     def from_options(cls, o: Options) -> "SolveParams":

@@ -3,15 +3,23 @@ plain CG, smoother-only iteration and restarted FGMRES.
 
 solve_pCG mirrors saena_object::solve_pCG (solve.cpp:2389-2803): residual
 convention r = A u - rhs, update u -= alpha p, stop when ||r||^2 <
-||r0||^2 * tol^2. Every loop runs in Python with one host sync per
-iteration (its stopping test); every other scalar stays a 0-d tensor on
-the device.
+||r0||^2 * tol^2, with the JAX package's periodic residual replacement
+(``SolveParams.residual_replace``).
+
+pCG, the stationary iteration, the smoother iteration and CG are each an
+``amg.graphs.Loop`` (the counterpart of the JAX package's jitted
+``while_loop``s): one iteration body on static tensors with no host sync,
+frozen once its stop flag drops. On the card the body runs as CUDA graph
+replays, captured at the first solve and cached on the hierarchy by
+(solver, SolveParams, dtype, max_iter); ``tol`` lives in a device buffer.
+The host reads the stop flag once an iteration. On the CPU the same body is
+called directly.
 
 The reference declares GMRES/pGMRES but ships them disabled (solve.cpp:3805,
 :4074 are `#if 0`); solve_GMRES is a working right-preconditioned restarted
 FGMRES, with the JAX package's two engines: "device" (the Arnoldi
 recurrence on tensors, breakdowns masked) and "host" (numpy Arnoldi, the
-parity oracle).
+parity oracle). Both keep a Python loop with one host sync a step.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from saena_tpu_torch.amg import graphs as _g
 from saena_tpu_torch.amg.cycles import vcycle
 from saena_tpu_torch.amg.hierarchy import Hierarchy, SolveParams
 from saena_tpu_torch.amg.smoothers import smooth
@@ -39,40 +48,156 @@ class SolveResult:
         return self.final_res / self.init_res
 
 
-def _pcg(hierarchy: Hierarchy, params: SolveParams, rhs, tol, max_iter: int):
-    A = hierarchy.levels[0].A
-    u = torch.zeros_like(rhs)
-    r = A.matvec(u) - rhs                         # = -rhs
-    init_dot = torch.dot(r, r)
-    thr = init_dot * tol * tol
-    hist = torch.full((max_iter + 1,), float("nan"), dtype=rhs.dtype,
-                      device=rhs.device)
-    hist[0] = torch.sqrt(init_dot)
+_OUT = ("init_res", "final_res", "true_res")   # exit scalars of every loop
 
-    rho = vcycle(hierarchy, params, torch.zeros_like(r), r)
-    p = rho
-    rr = init_dot
-    i = 0
-    go = bool(rr >= thr)
-    while i < max_iter and go:
+
+def _pcg(hierarchy: Hierarchy, params: SolveParams, rhs, max_iter: int):
+    """pCG (saena_tpu/amg/solvers.py:59-113). The step starts with the
+    V-cycle of the previous iteration's tail, so that no V-cycle runs once
+    the stop test has ended the loop: z = M r, p = z + beta p (beta = 0 on
+    the first iteration and after a residual replacement), then the update
+    of u and r and the stop test."""
+    A = hierarchy.levels[0].A
+    k = params.residual_replace
+    s = _g.new_state(rhs, max_iter, vectors=("u", "r", "rho", "p"),
+                     scalars=("rr", "rz", "thr", "init_dot") + _OUT,
+                     flags=("replaced",))
+
+    def init():
+        u = torch.zeros_like(s.rhs)
+        r = A.matvec(u) - s.rhs                       # = -rhs
+        init_dot = torch.dot(r, r)
+        s.u.copy_(u)
+        s.r.copy_(r)
+        s.p.zero_()
+        s.init_dot.copy_(init_dot)
+        s.rr.copy_(init_dot)
+        s.thr.copy_(init_dot * s.tol * s.tol)
+        s.rz.fill_(1.0)
+        s.replaced.fill_(True)                        # the first p is z
+        _g.start(s, torch.sqrt(init_dot), init_dot >= s.thr)
+
+    def step():
+        go = s.go
+        rho = vcycle(hierarchy, params, torch.zeros_like(s.r), s.r)
+        rz = torch.dot(s.r, rho)
+        beta = torch.where(s.replaced, 0.0, rz / s.rz)
+        p = rho + beta * s.p
         h = A.matvec(p)
-        rho_res = torch.dot(r, rho)
-        alpha = rho_res / torch.dot(p, h)
-        u = u - alpha * p
-        r = r - alpha * h
-        rr_new = torch.dot(r, r)
-        hist[i + 1] = torch.sqrt(rr_new)
-        go = bool(rr_new >= thr)                  # the iteration's host sync
-        if go:                                    # no V-cycle once converged
-            rho2 = vcycle(hierarchy, params, torch.zeros_like(r), r)
-            p = rho2 + (torch.dot(r, rho2) / rho_res) * p
-            rho = rho2
-        rr = rr_new
-        i += 1
-    true_res = torch.linalg.norm(A.matvec(u) - rhs)
-    return SolveResult(u=u, iters=i, init_res=torch.sqrt(init_dot),
-                       final_res=torch.sqrt(rr), history=hist,
-                       true_res=true_res)
+        alpha = rz / torch.dot(p, h)
+        u = s.u - alpha * p
+        r = s.r - alpha * h
+        if k > 0:
+            # periodic residual replacement bounds the drift of the
+            # recursive residual from A u - rhs; the next direction
+            # restarts (beta = 0), since carrying beta against a replaced
+            # residual destroys conjugacy
+            replaced = (s.i + 1) % k == 0
+            r = torch.where(replaced, A.matvec(u) - s.rhs, r)
+        else:
+            replaced = torch.zeros_like(s.replaced)
+        rr = torch.dot(r, r)
+        _g.keep(go, (s.rho, rho), (s.p, p), (s.u, u), (s.r, r), (s.rz, rz),
+                (s.rr, rr), (s.replaced, replaced))
+        _g.advance(s, go, torch.sqrt(rr), rr >= s.thr)
+
+    def fini():
+        s.init_res.copy_(torch.sqrt(s.init_dot))
+        s.final_res.copy_(torch.sqrt(s.rr))
+        s.true_res.copy_(torch.linalg.norm(A.matvec(s.u) - s.rhs))
+
+    return _g.Loop(s, init, step, fini, "pCG")
+
+
+def _stationary(hierarchy: Hierarchy, rhs, max_iter: int, update, name: str):
+    """u <- update(u, rhs) from u = 0 until ||A u - rhs|| < tol ||rhs|| or
+    max_iter; the residual is recomputed after every step
+    (saena_tpu/amg/solvers.py:123-150, :161-188)."""
+    A = hierarchy.levels[0].A
+    s = _g.new_state(rhs, max_iter, vectors=("u",),
+                     scalars=("rr", "thr", "init_dot") + _OUT)
+
+    def init():
+        u = torch.zeros_like(s.rhs)
+        r0 = A.matvec(u) - s.rhs
+        rr = torch.dot(r0, r0)
+        s.u.copy_(u)
+        s.rr.copy_(rr)
+        s.init_dot.copy_(rr)
+        s.thr.copy_(rr * s.tol * s.tol)
+        _g.start(s, torch.sqrt(rr), rr >= s.thr)
+
+    def step():
+        go = s.go
+        u = update(s.u, s.rhs)
+        r = A.matvec(u) - s.rhs
+        rr = torch.dot(r, r)
+        _g.keep(go, (s.u, u), (s.rr, rr))
+        _g.advance(s, go, torch.sqrt(rr), rr >= s.thr)
+
+    def fini():
+        s.init_res.copy_(torch.sqrt(s.init_dot))
+        s.final_res.copy_(torch.sqrt(s.rr))
+        s.true_res.copy_(s.final_res)
+
+    return _g.Loop(s, init, step, fini, name)
+
+
+def _vcycle_iter(hierarchy: Hierarchy, params: SolveParams, rhs, max_iter: int):
+    """Stationary iteration u <- vcycle(u) (ref saena_object::solve,
+    solve.cpp:1883-2016)."""
+    return _stationary(
+        hierarchy, rhs, max_iter,
+        lambda u, b: vcycle(hierarchy, params, u, b, u_is_zero=False),
+        "V-cycle iteration")
+
+
+def _smoother_iter(hierarchy: Hierarchy, params: SolveParams, rhs,
+                   max_iter: int):
+    """One sweep of the finest level's smoother a step (ref solve_smoother,
+    solve.cpp:2017)."""
+    lv = hierarchy.levels[0]
+    return _stationary(hierarchy, rhs, max_iter,
+                       lambda u, b: smooth(lv, params, u, b, 1),
+                       "smoother iteration")
+
+
+def _cg(hierarchy: Hierarchy, params: SolveParams, rhs, max_iter: int):
+    """Unpreconditioned CG on the finest level (ref solve_CG,
+    solve.cpp:2119; saena_tpu/amg/solvers.py:199-230)."""
+    A = hierarchy.levels[0].A
+    s = _g.new_state(rhs, max_iter, vectors=("u", "r", "p"),
+                     scalars=("rr", "thr", "init_dot") + _OUT)
+
+    def init():
+        u = torch.zeros_like(s.rhs)
+        r = s.rhs - A.matvec(u)
+        init_dot = torch.dot(r, r)
+        s.u.copy_(u)
+        s.r.copy_(r)
+        s.p.copy_(r)
+        s.rr.copy_(init_dot)
+        s.init_dot.copy_(init_dot)
+        s.thr.copy_(init_dot * s.tol * s.tol)
+        _g.start(s, torch.sqrt(init_dot), init_dot >= s.thr)
+
+    def step():
+        go = s.go
+        h = A.matvec(s.p)
+        alpha = s.rr / torch.dot(s.p, h)
+        u = s.u + alpha * s.p
+        r = s.r - alpha * h
+        rr = torch.dot(r, r)
+        p = r + (rr / s.rr) * s.p
+        _g.keep(go, (s.u, u), (s.r, r), (s.p, p), (s.rr, rr))
+        _g.advance(s, go, torch.sqrt(rr), rr >= s.thr)
+
+    def fini():
+        s.init_res.copy_(torch.sqrt(s.init_dot))
+        s.final_res.copy_(torch.sqrt(s.rr))
+        s.true_res.copy_(torch.linalg.norm(s.rhs - A.matvec(s.u)))
+
+    return _g.Loop(s, init, step, fini, "CG")
 
 
 def _prep_rhs(hierarchy: Hierarchy, rhs):
@@ -91,8 +216,63 @@ def _finalize(hierarchy: Hierarchy, res: SolveResult) -> SolveResult:
     return res
 
 
-def _tol(hierarchy: Hierarchy, tol: float) -> torch.Tensor:
-    return torch.tensor(tol, dtype=hierarchy.dtype, device=hierarchy.device)
+def _loop(build, hierarchy: Hierarchy, params: SolveParams, max_iter: int,
+          rhs) -> _g.Loop:
+    """The hierarchy's cached loop of ``build`` (one of _pcg, _vcycle_iter,
+    _smoother_iter, _cg), made at its first use."""
+    key = (build.__name__, params, hierarchy.dtype, max_iter)
+    loop = hierarchy.graphs.get(key)
+    if loop is None:
+        loop = hierarchy.graphs[key] = build(hierarchy, params, rhs, max_iter)
+    return loop
+
+
+def _solve(build, hierarchy: Hierarchy, rhs, params=None, tol: float = 1e-8,
+           max_iter: int = 100, graphs=None) -> SolveResult:
+    """Run the loop of ``build`` on ``rhs``: as graph replays on the card
+    (``graphs=None``), or its body called directly (``graphs=False``, the
+    uncaptured loop the checks compare the graphs with). The result's
+    tensors are copies, not the loop's buffers."""
+    params = params or SolveParams()
+    rhs = _prep_rhs(hierarchy, rhs)
+    loop = _loop(build, hierarchy, params, max_iter, rhs)
+    s = loop.s
+    s.rhs.copy_(rhs)
+    s.tol.fill_(tol)
+    if graphs is None:
+        graphs = hierarchy.device.type == "cuda"
+    iters = loop.run(graphs)
+    res = SolveResult(u=s.u.clone(), iters=iters, init_res=s.init_res.clone(),
+                      final_res=s.final_res.clone(), history=s.hist.clone(),
+                      true_res=s.true_res.clone())
+    return _finalize(hierarchy, res)
+
+
+def solve_pCG(hierarchy: Hierarchy, rhs, params=None, tol: float = 1e-8,
+              max_iter: int = 100) -> SolveResult:
+    """pCG on ``rhs`` (host array or tensor of length n_pad, zero padded)."""
+    return _solve(_pcg, hierarchy, rhs, params, tol, max_iter)
+
+
+def solve(hierarchy: Hierarchy, rhs, params=None, tol: float = 1e-8,
+          max_iter: int = 100) -> SolveResult:
+    """Stationary iteration u <- vcycle(u) (ref saena_object::solve,
+    solve.cpp:1883-2016)."""
+    return _solve(_vcycle_iter, hierarchy, rhs, params, tol, max_iter)
+
+
+def solve_smoother(hierarchy: Hierarchy, rhs, params=None, tol: float = 1e-8,
+                   max_iter: int = 100) -> SolveResult:
+    """Smoother-only iteration, one sweep of the finest level's smoother a
+    step (ref solve_smoother, solve.cpp:2017)."""
+    return _solve(_smoother_iter, hierarchy, rhs, params, tol, max_iter)
+
+
+def solve_CG(hierarchy: Hierarchy, rhs, params=None, tol: float = 1e-8,
+             max_iter: int = 100) -> SolveResult:
+    """Unpreconditioned CG on the finest level (ref solve_CG,
+    solve.cpp:2119). ``params`` is accepted for a uniform signature."""
+    return _solve(_cg, hierarchy, rhs, SolveParams(), tol, max_iter)
 
 
 def _history(max_iter: int, first, dtype) -> torch.Tensor:
@@ -100,95 +280,6 @@ def _history(max_iter: int, first, dtype) -> torch.Tensor:
                       device=first.device)
     hist[0] = first
     return hist
-
-
-def solve_pCG(hierarchy: Hierarchy, rhs, params=None, tol: float = 1e-8,
-              max_iter: int = 100) -> SolveResult:
-    """pCG on ``rhs`` (host array or tensor of length n_pad, zero padded)."""
-    params = params or SolveParams()
-    res = _pcg(hierarchy, params, _prep_rhs(hierarchy, rhs),
-               _tol(hierarchy, tol), max_iter)
-    return _finalize(hierarchy, res)
-
-
-def _stationary(hierarchy: Hierarchy, rhs, tol, max_iter: int, step):
-    """u <- step(u) from u = 0 until ||A u - rhs|| < tol ||rhs|| or
-    max_iter; the residual is recomputed after every step."""
-    A = hierarchy.levels[0].A
-    u = torch.zeros_like(rhs)
-    r0 = A.matvec(u) - rhs
-    rr = torch.dot(r0, r0)
-    init_dot = rr
-    thr = init_dot * tol * tol
-    hist = _history(max_iter, torch.sqrt(init_dot), rhs.dtype)
-    i = 0
-    while i < max_iter and bool(rr >= thr):
-        u = step(u)
-        r = A.matvec(u) - rhs
-        rr = torch.dot(r, r)
-        hist[i + 1] = torch.sqrt(rr)
-        i += 1
-    return SolveResult(u=u, iters=i, init_res=torch.sqrt(init_dot),
-                       final_res=torch.sqrt(rr), history=hist,
-                       true_res=torch.sqrt(rr))
-
-
-def solve(hierarchy: Hierarchy, rhs, params=None, tol: float = 1e-8,
-          max_iter: int = 100) -> SolveResult:
-    """Stationary iteration u <- vcycle(u) (ref saena_object::solve,
-    solve.cpp:1883-2016)."""
-    params = params or SolveParams()
-    rhs = _prep_rhs(hierarchy, rhs)
-    res = _stationary(
-        hierarchy, rhs, _tol(hierarchy, tol), max_iter,
-        lambda u: vcycle(hierarchy, params, u, rhs, u_is_zero=False))
-    return _finalize(hierarchy, res)
-
-
-def solve_smoother(hierarchy: Hierarchy, rhs, params=None, tol: float = 1e-8,
-                   max_iter: int = 100) -> SolveResult:
-    """Smoother-only iteration, one sweep of the finest level's smoother a
-    step (ref solve_smoother, solve.cpp:2017)."""
-    params = params or SolveParams()
-    rhs = _prep_rhs(hierarchy, rhs)
-    lv = hierarchy.levels[0]
-    res = _stationary(hierarchy, rhs, _tol(hierarchy, tol), max_iter,
-                      lambda u: smooth(lv, params, u, rhs, 1))
-    return _finalize(hierarchy, res)
-
-
-def _cg(A, rhs, tol, max_iter: int) -> SolveResult:
-    u = torch.zeros_like(rhs)
-    r = rhs - A.matvec(u)
-    init_dot = torch.dot(r, r)
-    thr = init_dot * tol * tol
-    hist = _history(max_iter, torch.sqrt(init_dot), rhs.dtype)
-    p = r
-    rr = init_dot
-    i = 0
-    while i < max_iter and bool(rr >= thr):
-        h = A.matvec(p)
-        alpha = rr / torch.dot(p, h)
-        u = u + alpha * p
-        r = r - alpha * h
-        rr_new = torch.dot(r, r)
-        p = r + (rr_new / rr) * p
-        hist[i + 1] = torch.sqrt(rr_new)
-        rr = rr_new
-        i += 1
-    true_res = torch.linalg.norm(rhs - A.matvec(u))
-    return SolveResult(u=u, iters=i, init_res=torch.sqrt(init_dot),
-                       final_res=torch.sqrt(rr), history=hist,
-                       true_res=true_res)
-
-
-def solve_CG(hierarchy: Hierarchy, rhs, params=None, tol: float = 1e-8,
-             max_iter: int = 100) -> SolveResult:
-    """Unpreconditioned CG on the finest level (ref solve_CG,
-    solve.cpp:2119)."""
-    rhs = _prep_rhs(hierarchy, rhs)
-    res = _cg(hierarchy.levels[0].A, rhs, _tol(hierarchy, tol), max_iter)
-    return _finalize(hierarchy, res)
 
 
 def _gmres_device(hierarchy: Hierarchy, params: SolveParams, rhs,

@@ -1,12 +1,14 @@
 """Public API mirroring the reference's pImpl surface (saena.hpp:14-265):
-``Matrix`` ~ saena::matrix and ``AMG`` ~ saena::amg, with ``Options`` from
-saena_tpu_torch.config ~ saena::options.
+``Matrix`` ~ saena::matrix, ``Vector`` ~ saena::vector and ``AMG`` ~
+saena::amg, with ``Options`` from saena_tpu_torch.config ~ saena::options.
 
-Matrix wraps host CSR assembly plus a device matrix; AMG wraps hierarchy
-setup (shard-parallel by default, ``Options.setup_shards``), the solvers
-and the lazy updates. Both run on the CUDA card unless the caller names
-another device (``device="cpu"``); without a card and without that request
-they raise. ``dtype`` defaults to torch's default dtype.
+Matrix wraps host CSR assembly and file I/O plus a device matrix; AMG wraps
+hierarchy setup (shard-parallel by default, ``Options.setup_shards``), the
+solvers (graph replays on the card, amg/graphs.py), the lazy updates, the
+profiling surfaces and the host matrix product. Both run on the CUDA card
+unless the caller names another device (``device="cpu"``); without a card
+and without that request they raise. ``dtype`` defaults to torch's default
+dtype.
 """
 from __future__ import annotations
 
@@ -25,9 +27,11 @@ from saena_tpu_torch.amg.galerkin import (
 )
 from saena_tpu_torch.config import Options
 from saena_tpu_torch.core.coo import CooBuilder, remove_boundary_nodes
+from saena_tpu_torch.io.readers import read_matrix, write_bin, write_mtx
 from saena_tpu_torch.ops.formats import device_matrix_from_csr, pad_to
 from saena_tpu_torch.parallel.dist_setup import dist_setup
 from saena_tpu_torch.runtime import resolve_device, resolve_dtype
+from saena_tpu_torch.vector import SaenaVector as Vector
 
 
 class Matrix:
@@ -39,8 +43,16 @@ class Matrix:
         self._csr: Optional[sp.csr_matrix] = None
         self._device_matrix = None
         self._use_dense = False
+        self._scale = False
         self._device = None
         self._dtype = None
+        self.p_order = 1          # ref saena_matrix.h p_order (p-coarsening)
+        self.prodim = 2
+
+    # ---- ingest (ref saena.cpp:10-262, the set overloads) ----
+    def read_file(self, path: str) -> None:
+        """Read a .mtx, .bin or .sbin file (io/readers.read_matrix)."""
+        self._csr = read_matrix(path)
 
     def set(self, rows, cols, vals) -> None:
         self._builder.set(rows, cols, vals)
@@ -48,14 +60,27 @@ class Matrix:
     def set_csr(self, A: sp.spmatrix) -> None:
         self._csr = A.tocsr()
 
-    def assemble(self, use_dense: bool = False, device=None,
-                 dtype=None) -> "Matrix":
+    def add_duplicates(self, add: bool) -> None:
+        self._builder.add_duplicates = add
+
+    def set_p_order(self, p: int) -> None:
+        """The p-coarsening order, stored until p-coarsening is ported:
+        AMG.set_matrix raises for an order above 1."""
+        self.p_order = p
+
+    def set_prodim(self, d: int) -> None:
+        self.prodim = d
+
+    def assemble(self, scale: bool = False, use_dense: bool = False, *,
+                 device=None, dtype=None) -> "Matrix":
         """Build the CSR from the buffered entries (if any) and its device
-        matrix on ``device`` at ``dtype``."""
+        matrix on ``device`` at ``dtype``. ``scale`` is stored, as in
+        saena_tpu; the symmetric scaling is Options.scale's."""
         if self._builder.nnz_buffered:
             self._csr = self._builder.assemble()
         if self._csr is None:
             raise ValueError("no entries set before assemble()")
+        self._scale = scale
         self._use_dense = use_dense
         self._device, self._dtype = resolve_device(device), resolve_dtype(dtype)
         self._device_matrix = device_matrix_from_csr(
@@ -73,7 +98,7 @@ class Matrix:
             raise ValueError("pattern mismatch in update_values")
         self._csr.data[:] = vals
         if self._device_matrix is not None:
-            self.assemble(use_dense=self._use_dense, device=self._device,
+            self.assemble(self._scale, self._use_dense, device=self._device,
                           dtype=self._dtype)
 
     def get_num_rows(self) -> int:
@@ -81,6 +106,17 @@ class Matrix:
 
     def get_nnz(self) -> int:
         return int(self.csr.nnz)
+
+    def get_internal_matrix(self):
+        """The device matrix (None before assemble())."""
+        return self._device_matrix
+
+    def writeMatrixToFile(self, path: str) -> None:
+        """Write the CSR as .bin (by extension) or Matrix Market."""
+        if path.endswith(".bin"):
+            write_bin(path, self.csr)
+        else:
+            write_mtx(path, self.csr)
 
     def erase(self) -> None:
         self._builder = CooBuilder(add_duplicates=self._builder.add_duplicates)
@@ -119,14 +155,23 @@ class AMG:
         self.info: Optional[_hier.SetupInfo] = None
         self.params: Optional[_hier.SolveParams] = None
         self._rhs: Optional[np.ndarray] = None
+        self._rhs_vector: Optional[Vector] = None
         self._bound = None       # boundary-removal bookkeeping
+        self.verbose = False
 
-    def set_matrix(self, A: Matrix, opts: Optional[Options] = None) -> "AMG":
+    def set_matrix(self, A: Matrix, opts: Optional[Options] = None,
+                   p_levels=None) -> "AMG":
         """Set up the hierarchy of A. ``Options.setup_shards`` picks the
         host setup as saena_tpu does: -1 (the default) runs the
         shard-parallel setup (one shard per 4 cores, at least 2), a
         positive value forces that shard count, 0 runs the serial setup.
-        All give the same hierarchy bit for bit."""
+        All give the same hierarchy bit for bit. A solve's graphs live on
+        the hierarchy, so a new one starts without them. p-coarsening
+        (``p_levels``, a p-order above 1) is not ported and raises."""
+        if p_levels is not None or A.p_order > 1:
+            raise NotImplementedError(
+                f"p-coarsening (p_order {A.p_order}, p_levels {p_levels}) "
+                "is not ported yet")
         if opts is not None:
             self.opts = opts
         csr = A.csr
@@ -146,13 +191,17 @@ class AMG:
                 csr, self.opts, dtype=self.dtype, device=self.device,
                 use_dense=A._use_dense)
         self.params = _hier.SolveParams.from_options(self.opts)
-        if self.opts.verbose:
+        if self.opts.verbose or self.verbose:
             print(self.info.table())
             if self.info.comm is not None:
                 print(self.info.comm.table())   # setup wire volume by phase
         return self
 
     def set_rhs(self, rhs) -> "AMG":
+        """The right-hand side: a host array or an assembled Vector."""
+        if isinstance(rhs, Vector):
+            self._rhs_vector = rhs
+            rhs = rhs.get_vec()
         self._rhs = np.asarray(rhs, dtype=np.float64)
         return self
 
@@ -306,3 +355,110 @@ class AMG:
         """Largest absolute entry of A - B."""
         d = A.csr - B.csr
         return float(np.abs(d.data).max()) if d.nnz else 0.0
+
+    def matmat(self, A: Matrix, B: Matrix, mesh=None, mode: str = "auto",
+               dtype=None) -> Matrix:
+        """The product A B (ref saena::amg::matmat, saena.cpp:~930): the
+        host scipy product, assembled on this AMG's device at ``dtype``
+        (this AMG's unless named). The device rings of a mesh (``mesh``,
+        ``mode``) wait for the sharded path and raise."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "matmat on a device mesh waits for the sharded path")
+        C = Matrix()
+        C.set_csr((A.csr @ B.csr).tocsr())
+        C.assemble(device=self.device, dtype=dtype or self.dtype)
+        return C
+
+    # ---- profiling (ref profile_matvecs, print_vcycle_time,
+    # solve_pCG_profile; saena_tpu/api.py:374-421) ----
+
+    def _hierarchy(self) -> _hier.Hierarchy:
+        if self.hierarchy is None:
+            raise ValueError("set_matrix() first")
+        return self.hierarchy
+
+    def profile_matvecs(self, n_iter: int = 20):
+        """Per-level matvec times (profiling.profile_matvecs)."""
+        from saena_tpu_torch.profiling import profile_matvecs
+
+        return profile_matvecs(self._hierarchy(), n_iter=n_iter)
+
+    def profile_matvecs_breakdown(self, n_iter: int = 20):
+        """The V-cycle's component times (profiling.vcycle_breakdown) on a
+        rhs of ones."""
+        from saena_tpu_torch.profiling import vcycle_breakdown
+
+        H = self._hierarchy()
+        rhs = np.zeros(H.n_pad)
+        rhs[: H.n] = 1.0
+        return vcycle_breakdown(H, self.params, rhs, n_iter=n_iter)
+
+    def profile_trace(self, logdir: str, **kw):
+        """One pCG solve under torch.profiler (the card's activity with the
+        host's), its Chrome trace written to ``logdir/solve_pCG.trace.json``
+        (open it in Perfetto or chrome://tracing; the span "solve_pCG"
+        holds the solve, ``profiling.device_busy`` reads the device's busy
+        and idle share in it). Returns (u, SolveResult)."""
+        from saena_tpu_torch.profiling import trace
+
+        out, _ = trace(lambda: self.solve_pCG(**kw), logdir, "solve_pCG",
+                       self.device)
+        return out
+
+    def solve_pCG_profile(self, **kw):
+        """A pCG solve and its phase report (ref solve_pCG_profile,
+        saena_object_solve.cpp:2804-3597): (u, SolveResult, breakdown),
+        the breakdown being profile_matvecs_breakdown's with
+        ``pcg_phases``, the pCG iteration's split (profiling.pcg_profile)."""
+        from saena_tpu_torch.profiling import pcg_profile
+
+        u, res = self.solve_pCG(**kw)
+        bd = self.profile_matvecs_breakdown(n_iter=5)
+        bd["pcg_phases"] = pcg_profile(self.hierarchy, self.params, n_iter=5)
+        return u, res, bd
+
+    # ---- setters (ref saena.hpp:236-265; saena_tpu/api.py:423-468) ----
+
+    def set_verbose(self, v: bool) -> None:
+        self.verbose = v
+
+    def set_multigrid_max_level(self, n: int) -> None:
+        self.opts.max_level = n
+
+    def set_scale(self, s: bool) -> None:
+        self.opts.scale = s
+
+    def set_sample_sz_percent(self, p: float) -> None:
+        self.opts.sample_sz_percent = p
+
+    def switch_to_dense(self, b: bool) -> None:
+        self.opts.switch_to_dense = b
+
+    def set_dense_threshold(self, thre: float, sz: int) -> None:
+        self.opts.dense_thre = thre
+        self.opts.dense_sz_thre = sz
+
+    def set_shrink_levels(self, levels) -> None:
+        """Which levels may shrink their device subset (ref
+        set_shrink_levels); read by the sharded path, stored until then."""
+        self.opts.shrink_levels = tuple(bool(b) for b in levels)
+
+    def set_shrink_values(self, values) -> None:
+        """Per-level divisors of the device count (ref set_shrink_values);
+        stored until the sharded path."""
+        self.opts.shrink_values = tuple(int(v) for v in values)
+
+    def switch_repart(self, val: bool = True) -> None:
+        """The density-triggered equi-row partition switch (ref
+        switch_repart, saena.cpp:717); stored until the sharded path."""
+        self.opts.switch_repart = bool(val)
+
+    def set_repart_thre(self, thre: float) -> None:
+        """Density threshold of the equi-row switch (ref set_repart_thre);
+        stored until the sharded path."""
+        self.opts.repart_thre = float(thre)
+
+    def destroy(self) -> None:
+        self.hierarchy = None
+        self.info = None

@@ -2,8 +2,8 @@
 
 One dataclass carries every option of the reference's configuration surface
 (`saena::options`, saena.hpp:127-193, plus the public members of
-saena_object.h). Field names and defaults are those of `saena_tpu.config`;
-the JSON/XML loaders are not ported yet. `setup_shards` is read by
+saena_object.h). Field names and defaults are those of `saena_tpu.config`,
+with its JSON/XML loaders and writers. `setup_shards` is read by
 `AMG.set_matrix` (api.py), `structural_transfers` by amg/hierarchy.py.
 Fields that select machinery the port does not have yet (`rap="device"`,
 `smooth_dtype`, the sharded-path policy) are accepted for parity.
@@ -11,6 +11,7 @@ Fields that select machinery the port does not have yet (`rap="device"`,
 from __future__ import annotations
 
 import dataclasses
+import json
 
 
 @dataclasses.dataclass
@@ -176,6 +177,72 @@ class Options:
                                        # functional so there are no races to
                                        # sanitize — SURVEY.md §5)
     petsc_solver: str = ""             # kept for API parity; unused
+
+    # attribute names of the reference's XML options files
+    # (data/options001.xml style; the reference's parser, saena.cpp:444-546,
+    # reads them by position, these by name)
+    _XML_ALIASES = {
+        "solver_max_iter": "max_iter",
+        "solver_tol": "tol",
+        "conn_str": "connStrength",
+        "petsc": "petsc_solver",
+    }
+    _XML_BOOLS = ("dynamic_levels", "switch_to_dense", "scale",
+                  "adaptive_coarsening", "remove_boundary", "compress_halo")
+
+    @classmethod
+    def from_file(cls, path: str) -> "Options":
+        """Options from JSON, or from the reference's SAENA XML format
+        (saena.cpp:444-546, data/options001.xml). Unknown keys raise."""
+        if path.endswith(".xml"):
+            return cls.from_xml(path)
+        with open(path) as f:
+            data = json.load(f)
+        return cls.from_dict(data)
+
+    @classmethod
+    def from_xml(cls, path: str) -> "Options":
+        import xml.etree.ElementTree as ET
+
+        root = ET.parse(path).getroot()
+        node = root if root.tag == "OPTIONS" else root.find(".//OPTIONS")
+        if node is None:
+            # the first child of <SAENA>, as the reference reads it
+            node = list(root)[0] if len(root) else root
+        types = {f.name: type(getattr(cls(), f.name))
+                 for f in dataclasses.fields(cls)}
+        data = {}
+        for key, raw in node.attrib.items():
+            name = cls._XML_ALIASES.get(key, key)
+            if name not in types:
+                raise ValueError(f"unknown option attribute {key!r} in {path}")
+            t = types[name]
+            if t is bool or name in cls._XML_BOOLS:
+                data[name] = raw.strip() in ("1", "true", "True")
+            elif t is int:
+                data[name] = int(raw)
+            elif t is float:
+                data[name] = float(raw)
+            else:
+                data[name] = raw
+        return cls(**data)
+
+    @classmethod
+    def from_dict(cls, data: dict) -> "Options":
+        fields = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(data) - fields
+        if unknown:
+            raise ValueError(f"unknown option(s): {sorted(unknown)}")
+        # JSON has no tuples: lists come back as the tuple fields' tuples
+        tup = {f.name for f in dataclasses.fields(cls)
+               if isinstance(f.default, tuple)}
+        data = {k: tuple(v) if k in tup and isinstance(v, list) else v
+                for k, v in data.items()}
+        return cls(**data)
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(self.to_dict(), f, indent=2)
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)

@@ -39,6 +39,13 @@ class CooBuilder:
         self._cols.append(cols)
         self._vals.append(vals)
 
+    def set_block(self, rows, cols, vals, row_offset: int = 0,
+                  col_offset: int = 0) -> None:
+        """Entries of a contiguous block at an offset (ref saena.cpp, the
+        set overload with offsets)."""
+        self.set(np.asarray(rows) + row_offset, np.asarray(cols) + col_offset,
+                 vals)
+
     @property
     def nnz_buffered(self) -> int:
         return sum(r.size for r in self._rows)
@@ -69,6 +76,13 @@ class CooBuilder:
             a.eliminate_zeros()
         a.sort_indices()
         return a
+
+
+def coo_to_csr(rows, cols, vals, shape=None) -> sp.csr_matrix:
+    """Canonical CSR of COO triples, duplicates summed."""
+    b = CooBuilder(shape=shape, add_duplicates=True)
+    b.set(rows, cols, vals)
+    return b.assemble()
 
 
 def remove_boundary_nodes(A: sp.csr_matrix, rhs: np.ndarray | None = None):

@@ -27,7 +27,10 @@ def test_import_loads_no_jax_and_no_saena_tpu():
     code = ("import sys, saena_tpu_torch, saena_tpu_torch.convert, "
             "saena_tpu_torch.amg.solvers, saena_tpu_torch._native, "
             "saena_tpu_torch.native, saena_tpu_torch.parallel.dist_setup, "
-            "saena_tpu_torch.api\n"
+            "saena_tpu_torch.api, saena_tpu_torch.amg.graphs, "
+            "saena_tpu_torch.profiling, saena_tpu_torch.vector, "
+            "saena_tpu_torch.oracles, saena_tpu_torch.io.readers, "
+            "saena_tpu_torch.io.nektar, saena_tpu_torch.config\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(','.join(bad))")

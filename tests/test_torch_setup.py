@@ -38,6 +38,12 @@ VARIANTS = {
     "sparsify": ("poisson", {"sample_sz_percent": 0.7}),
     "double": ("poisson", {"aggregation": "double"}),
     "no_dense_switch": ("band", {"switch_to_dense": False}),
+    "no_dynamic_levels": ("poisson", {"dynamic_levels": False}),
+    "no_reorder_coarse": ("poisson", {"reorder_coarse": False}),
+    "filter": ("poisson", {"filter_start": 2, "filter_thre": 1e-2,
+                           "filter_max": 1e-1}),
+    "conn_strength": ("poisson", {"connStrength": 0.6}),
+    "user_eig": ("poisson", {"eig": 12.0}),
 }
 
 
