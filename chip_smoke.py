@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the saena_tpu_torch port on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
 
 Phases, each of which fails the run (non-zero exit) when it goes wrong:
 
@@ -11,8 +11,9 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    48^3 Poisson interior (the poisson3d_48 golden's levels), whose operators
    give the kernels their main-path shapes. The native host kernels of the
    setup (saena_tpu_torch/_native, g++) must build and load.
-2. Each kernel against its plain PyTorch version on the card, in f32 and
-   f64 (the DIA kernel also with bf16 data). Tolerance: row-sum-scaled
+2. Each kernel against its plain PyTorch version on the card, in f32, f64
+   and with bf16 values (f32 x and sums; the worst error of each bf16 mode
+   is printed). Tolerance: row-sum-scaled
    error (|kernel - plain| over the same expression evaluated on absolute
    values) <= 1e-5 for f32 and bf16 data, <= 1e-12 for f64; zero padding
    preserved exactly.
@@ -82,6 +83,26 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
        model_check, vcycle_breakdown per level, pcg_profile), and a capture
        with a host copy, which must raise GraphCaptureError naming the op
        while the card works on.
+   (g) FGMRES(30) for 30 steps without a preconditioner and pFGMRES to
+       1e-8 (f64, the phase-(a) hierarchy, a seeded rhs) through graphs
+       (an Arnoldi step and a restart boundary each a graph), bit-equal to
+       the same loop run uncaptured with its launches, equal iterations and
+       histories at rtol 1e-6 against the CPU twin; the ms of 20 solves of
+       each beside the Python loops that preceded the graph engine.
+   (h) Options.smooth_dtype: f32 with bf16 twins (the card's picks), the
+       same hierarchy forced as in (b) (the level-2 A's twin in strip), and
+       f64 with f32 twins; each must reach 1e-8 within one iteration of the
+       same solve without twins, and every kernel must launch with bf16
+       values; the ms of 20 solves of each beside 20 of the solve without
+       twins.
+   (i) p-coarsening: A = kron(L, K), L the interior 3-D Poisson on 30^3
+       units and K = E E^T / 5 + 2 I (E from --seed), set up on the card with
+       modal_block_plevels(27000, 5): kinds p, p, p, then h; pCG in f64 to
+       1e-8 against the CPU twin on the same host levels; setup seconds by
+       phase and the solve's spread.
+   (j) rap="device" against rap="host" in the 48^3 f64 serial setup:
+       equal level sizes, every level within 1e-11 of its max |A|, the
+       golden's iterations both ways; rap seconds and block pairs.
    Every kernel must have launched in phase 3, the strip and strip8
    kernels on both of their paths, the DIA kernel in both of its designs:
    the tiled kernel for every operator of more than 8 diagonals (level 1),
@@ -105,11 +126,16 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    its wrapper picks and on the other one; the rows path is PR 2's kernel,
    so its time stands beside the new one, with its launches in one picker
    and one forced solve of phase 3. Every strip / strip8 operator of the
-   f32 solve is timed with its launches per solve. Then the H100 cost
+   f32 solve is timed with its launches per solve. The bf16 modes are timed
+   on phase 3h's twins (K1 SpMV at levels 0 and 1; K3 on the picker's and
+   K2 on the forced level-2 A, both paths) with their bound at bf16 value
+   bytes and their launches per solve; cuSPARSE has no bf16-A / f32-x
+   SpMV, so their yardstick is its f32 product. Then the H100 cost
    constants of the format picker, fitted from these times.
 
-The second-to-last line is one JSON object listing every ported kernel; the
-last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
+The second-to-last line is one JSON object listing every ported kernel,
+and each kernel's bf16-values mode as an entry of its own; the last line is
+{"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when no CUDA card is present or the port's package is missing.
 """
 from __future__ import annotations
@@ -471,12 +497,12 @@ def gather_cases(dev, ops):
 
 
 def check_gather(dev, cases):
-    """strip / strip8 kernel vs plain in f32 and f64 for every case, on the
-    path its wrapper picks and on the other one (the cases cut into chunks
-    on the stream path only); two launches must agree bit for bit, and x
-    passed as a view that is not 16-byte aligned must give the same result.
-    Returns (rows of (case, path, dtype, scaled_err, max_abs_err), failure
-    or None)."""
+    """strip / strip8 kernel vs plain in f32, with bf16 values (an f32 x)
+    and in f64 for every case, on the path its wrapper picks and on the
+    other one (the cases cut into chunks on the stream path only); two
+    launches must agree bit for bit, and x passed as a view that is not
+    16-byte aligned must give the same result. Returns (rows of (case,
+    path, values dtype, scaled_err, max_abs_err), failure or None)."""
     import torch
 
     from saena_tpu_torch.ops import strip8_spmv as s8
@@ -494,12 +520,14 @@ def check_gather(dev, cases):
                                               device=dev)
         y_abs = plain(with_vals(M_case, M_case.vals.abs()), x64.abs())
         paths = ["stream"] if "chunk" in case else ["rows", "stream"]
-        for path, dname in ((p, d) for p in paths for d in ("float32", "float64")):
+        for path, dname in ((p, d) for p in paths
+                            for d in ("float32", "bfloat16", "float64")):
             M64 = M_case if path_of(M_case) == path else on_path(M_case, path)
             dt = getattr(torch, dname)
             Mx = M64 if dt == torch.float64 else with_vals(M64, M64.vals.to(dt))
-            x = x64.to(dt)
-            store = torch.zeros(x.numel() + 1, dtype=dt, device=dev)
+            cdt = torch.promote_types(dt, torch.float32)       # x, y
+            x = x64.to(cdt)
+            store = torch.zeros(x.numel() + 1, dtype=cdt, device=dev)
             store[1:] = x
             yk = kern(Mx, x)
             same = torch.equal(yk, kern(Mx, x)) and torch.equal(yk, kern(Mx, store[1:]))
@@ -511,7 +539,7 @@ def check_gather(dev, cases):
             pad_ok = bool((yk[n:] == 0).all())
             C = Mx.chunks
             tickets_ok = not (Mx.counter.any() or C is not None and C.counter.any())
-            ok = (yk.dtype == dt and yk.shape == yp.shape and pad_ok and same
+            ok = (yk.dtype == cdt and yk.shape == yp.shape and pad_ok and same
                   and tickets_ok and np.isfinite(err) and err <= TOL[dname])
             rows.append((case, path, dname, err, abs_err))
             geo = (f"perrow={Mx.perrow} krb={Mx.krb} pairs={Mx.idx.shape[0]}"
@@ -632,8 +660,9 @@ def solve_main_path(dev, dtype, golden):
 
 def forced_hierarchy(solver):
     """The picker's hierarchy with every transfer structural, Pt in strip
-    and Pt^T in strip8, and the level-2 A in whichever of strip and strip8
-    the picker did not choose; the host levels are the solver's own."""
+    and Pt^T in strip8, and the level-2 A (and its smoothers' twin, if it
+    has one) in whichever of strip and strip8 the picker did not choose;
+    the host levels are the solver's own."""
     from saena_tpu_torch.amg.prolongation import tentative_prolongator
     from saena_tpu_torch.ops.formats import pad_to, to_device
     from saena_tpu_torch.ops.strip8_spmv import strip8_from_csr
@@ -645,7 +674,12 @@ def forced_hierarchy(solver):
     levels = list(H.levels)
     A2 = info.csr_levels[2]
     other = strip8_from_csr if isinstance(levels[2].A, StripMatrix) else strip_from_csr
-    levels[2] = dataclasses.replace(levels[2], A=other(A2, dt, dev))
+    twin = levels[2].A_smooth
+    if twin is None:
+        levels[2] = dataclasses.replace(levels[2], A=other(A2, dt, dev))
+    else:
+        A_2, twin = other(A2, dt, dev, smooth_dtype=twin.dtype)
+        levels[2] = dataclasses.replace(levels[2], A=A_2, A_smooth=twin)
     for l in range(len(levels) - 1):
         agg, wq = info.structs[l]
         n, n_c = info.sizes[l], info.sizes[l + 1]
@@ -1077,6 +1111,278 @@ def profiles(solver):
     return out
 
 
+# ----------------------------- phase 3g-3j: FGMRES, twins, p-levels, rap --
+
+# the times of the FGMRES Python loops that preceded the graph engine (one
+# solve after a warm one, f64, 48^3; NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md §6), printed beside this run's graph solves
+PYTHON_LOOP_GMRES_MS = {"GMRES": 93.91, "pGMRES": 52.74}
+# phase 3g's loops: (label, solve_GMRES keyword arguments)
+GMRES_RUNS = (("GMRES", {"max_iter": 30, "precondition": False}),
+              ("pGMRES", {"precondition": True}))
+
+
+def fgmres_graphs(solver, cpu):
+    """Phase 3g on the f64 picker hierarchy, seeded random rhs: FGMRES(30)
+    30 steps without a preconditioner, and pFGMRES to 1e-8, each through
+    graphs against the same loop uncaptured (equal iterations, bit-equal
+    history and u, equal launches) and against the CPU twin (equal
+    iterations, histories at rtol 1e-6); the ms of SPREAD_REPS solves of
+    each. Returns (rows, failure or None)."""
+    from saena_tpu_torch.amg import solvers
+
+    saved = solver._rhs
+    rhs = np.random.default_rng(11).standard_normal(saved.size)
+    solver.set_rhs(rhs)
+    cpu.set_rhs(rhs)
+    rows, bad = [], None
+    for label, kw in GMRES_RUNS:
+        def eager(**k):
+            return solver._run(lambda H, r, **kk: solvers._solve(
+                solvers._gmres, H, r, graphs=False, restart=30,
+                precondition=kw["precondition"], **kk), **k)
+        run_kw = {k: v for k, v in kw.items() if k == "max_iter"}
+        graph = lambda: solver.solve_GMRES(tol=1e-8, **kw)
+        (ug, rg), lg = launch_delta(graph)
+        (ue, re_), le = launch_delta(lambda: eager(tol=1e-8, **run_kw))
+        _, ref = cpu.solve_GMRES(tol=1e-8, **kw)
+        it = rg.iters
+        key = ("_gmres", solver.params, solver.hierarchy.dtype,
+               kw.get("max_iter", solver.opts.max_iter),
+               ("precondition", kw["precondition"]), ("restart", 30))
+        loop = solver.hierarchy.graphs[key]
+        row = {"run": label, "dtype": str(solver.dtype), **kw, "iters": it,
+               "eager_iters": re_.iters, "cpu_iters": ref.iters,
+               "rel_res": float(rg.rel_res), "capture_ms": loop.capture_ms,
+               "graphs": len(loop.graphs or ()), "launches_graph": lg,
+               "launches_eager": le}
+        why = agree(rg, ref)
+        if rg.iters != re_.iters:
+            why = f"graph {rg.iters} != uncaptured {re_.iters} iterations"
+        elif not (np.array_equal(ug, ue) and np.array_equal(
+                rg.history[: it + 1].cpu().numpy(),
+                re_.history[: it + 1].cpu().numpy())):
+            why = "graph and uncaptured solves differ"
+        elif lg != le:
+            why = f"launches: graph {lg} != uncaptured {le}"
+        elif label == "pGMRES" and not float(rg.rel_res) < 1e-8:
+            why = f"rel_res {float(rg.rel_res):.3e}"
+        elif len(loop.graphs or ()) != 4:
+            why = "the loop did not replay its four graphs"
+        if why:
+            bad = bad or f"{label}: {why}"
+        row["graph"] = spread(graph)
+        row["eager"] = spread(lambda: eager(tol=1e-8, **run_kw))
+        row["python_loop_ms"] = PYTHON_LOOP_GMRES_MS[label]
+        rows.append(row)
+        print("  " + json.dumps(row))
+    solver.set_rhs(saved)
+    cpu.set_rhs(saved)
+    return rows, bad
+
+
+def twin_formats(H) -> list:
+    """Per level: A's format and the twin's dtype (None without one)."""
+    return [(type(L.A).__name__,
+             None if L.A_smooth is None else str(L.A_smooth.dtype).split(".")[-1])
+            for L in H.levels]
+
+
+def twin_solve(solver, label, base):
+    """A warm and a timed pCG solve of a hierarchy with twins, then the ms
+    of SPREAD_REPS solves: rel_res below 1e-8 within one iteration of
+    ``base`` (iterations and spread of the same solve without twins).
+    Returns (row, failure or None)."""
+    base_iters, base_spread = base
+    (u, res), ms, launched = timed(solver.solve_pCG)
+    row = {"run": label, "dtype": str(solver.dtype),
+           "twins": twin_formats(solver.hierarchy), "iters": res.iters,
+           "iters_without_twins": base_iters, "rel_res": float(res.rel_res),
+           "ms": ms, "launches": launched, "graph": spread(solver.solve_pCG),
+           "graph_without_twins": base_spread}
+    print("  " + json.dumps(row))
+    bad = None
+    if not (float(res.rel_res) < 1e-8 and abs(res.iters - base_iters) <= 1):
+        bad = (f"{label}: {res.iters} iterations to rel_res "
+               f"{float(res.rel_res):.3e} ({base_iters} without twins)")
+    elif not np.isfinite(u).all():
+        bad = f"{label}: non-finite solution"
+    return row, bad
+
+
+def smooth_dtype_solves(dev, solver32, solver64):
+    """Phase 3h: the 48^3 solves with Options.smooth_dtype, through
+    Matrix/AMG: (a) f32 with bf16 twins (the card's picks: K1 bf16 SpMV on
+    levels 0-1, K3 on the level-2 A), (b) the same hierarchy forced as in
+    phase 3b (the level-2 A and its twin in strip: K2 with bf16 values),
+    (c) f64 with f32 twins; each against the same solve without twins.
+    Returns (rows, {label: solver}, failure or None)."""
+    import torch
+
+    from saena_tpu_torch import AMG, Matrix, Options, generators
+
+    def setup(dtype, twin):
+        A = Matrix()
+        A.set_csr(generators.laplacian3D(M, M, M))
+        A.assemble(device=dev, dtype=dtype)
+        s = AMG(device=dev, dtype=dtype)
+        t0 = time.perf_counter()
+        s.set_matrix(A, Options(remove_boundary=True, smooth_dtype=twin))
+        torch.cuda.synchronize()
+        s.set_rhs(generators.laplacian3D_set_rhs(M, M, M))
+        print(f"  setup {dtype} with {twin} twins: {time.perf_counter() - t0:.3f} s")
+        return s
+
+    def base(solver):
+        """Iterations and spread of the solver's solve without twins."""
+        return solver.solve_pCG()[1].iters, spread(solver.solve_pCG)
+
+    rows, solvers, bad = [], {}, None
+    base32 = base(solver32)
+    s_bf = solvers["f32_bf16"] = setup(torch.float32, "bfloat16")
+    row, why = twin_solve(s_bf, "f32_bf16_picker", base32)
+    rows.append(row)
+    bad = bad or why
+    picker_bf = s_bf.hierarchy
+    s_bf.hierarchy = forced_hierarchy(s_bf)
+    saved32 = solver32.hierarchy
+    solver32.hierarchy = forced_hierarchy(solver32)
+    base_forced = base(solver32)
+    solver32.hierarchy = saved32
+    row, why = twin_solve(s_bf, "f32_bf16_forced", base_forced)
+    rows.append(row)
+    bad = bad or why
+    solvers["f32_bf16_forced"] = s_bf.hierarchy
+    s_bf.hierarchy = picker_bf
+    s64 = solvers["f64_f32"] = setup(torch.float64, "float32")
+    row, why = twin_solve(s64, "f64_f32_picker", base(solver64))
+    rows.append(row)
+    bad = bad or why
+    return rows, solvers, bad
+
+
+# the synthetic modal problem of phase 3i: kron(L, K), L the interior 3-D
+# Poisson on P_UNITS^3 units, K a P_MODES x P_MODES SPD modal block
+P_UNITS, P_MODES = 30, 5
+
+
+def modal_problem(seed):
+    """A = kron(L, K) with K = E E^T / 5 + 2 I (E standard normal from
+    ``seed``, as tests/test_pcoarsen.py builds its element blocks), the
+    order-4 modal unit layout that detect_modal_blocks accepts, and a
+    seeded rhs."""
+    import scipy.sparse as sp
+
+    from saena_tpu_torch import generators
+    from saena_tpu_torch.core.coo import remove_boundary_nodes
+
+    rng = np.random.default_rng(seed)
+    E = rng.standard_normal((P_MODES, P_MODES))
+    K = E @ E.T / P_MODES + 2 * np.eye(P_MODES)
+    m = P_UNITS + 2
+    L = remove_boundary_nodes(generators.laplacian3D(m, m, m))[0]
+    A = sp.kron(L, K).tocsr()
+    return A, rng.standard_normal(A.shape[0])
+
+
+def pcoarsen_solve(dev, seed):
+    """Phase 3i: the modal problem set up on the card (f64, the default
+    shard-parallel setup) with modal_block_plevels(P_UNITS^3, P_MODES): three
+    p-levels, then h; pCG to 1e-8 held against the port's CPU run on the
+    same host levels (kinds, sizes, iterations, histories at rtol 1e-6); the
+    setup seconds by phase and the solve's spread. Returns (row, failure or
+    None)."""
+    import torch
+
+    from saena_tpu_torch import AMG, Matrix, Options
+    from saena_tpu_torch.amg.pcoarsen import detect_modal_blocks, modal_block_plevels
+
+    t0 = time.perf_counter()
+    A, rhs = modal_problem(seed)
+    n_units = detect_modal_blocks(A, P_MODES)
+    Ps = modal_block_plevels(n_units, P_MODES)
+    build_s = time.perf_counter() - t0
+    mat = Matrix()
+    mat.set_csr(A)
+    mat.assemble(device=dev, dtype=torch.float64)
+    s = AMG(device=dev, dtype=torch.float64)
+    t0 = time.perf_counter()
+    s.set_matrix(mat, Options(), p_levels=Ps)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    s.set_rhs(rhs)
+    print("  " + s.info.table().replace("\n", "\n  "))
+    (u, res), ms, launched = timed(s.solve_pCG)
+    cpu = cpu_twin(s)
+    _, ref = cpu.solve_pCG()
+    row = {"n": A.shape[0], "nnz": int(A.nnz), "n_units": n_units,
+           "p_levels": [list(P.shape) for P in Ps], "build_s": build_s,
+           "setup_s": setup_s,
+           "setup_phases_s": {k: round(v, 3) for k, v in s.info.phases.items()},
+           "sizes": s.info.sizes, "kinds": s.info.coarsen_kinds,
+           "formats": s.info.formats, "iters": res.iters, "cpu_iters": ref.iters,
+           "rel_res": float(res.rel_res), "ms": ms, "launches": launched,
+           "spread": spread(s.solve_pCG)}
+    print("  " + json.dumps(row))
+    bad = agree(res, ref)
+    kinds = s.info.coarsen_kinds
+    if bad is None and not (kinds[:3] == ["p", "p", "p"] and "h" in kinds[3:]):
+        bad = f"coarsen kinds {kinds}"
+    elif bad is None and cpu.info.sizes != s.info.sizes:
+        bad = f"sizes {s.info.sizes} != CPU {cpu.info.sizes}"
+    elif bad is None and not float(res.rel_res) < 1e-8:
+        bad = f"rel_res {float(res.rel_res):.3e} after {res.iters}"
+    elif bad is None and not np.isfinite(u).all():
+        bad = "non-finite solution"
+    return row, bad
+
+
+def rap_device(dev, golden):
+    """Phase 3j: the 48^3 f64 serial setup (setup_shards=0) on the card
+    with rap="device" and rap="host": equal level sizes, every coarse
+    level within 1e-11 of its max |A|, pCG in the golden's iterations both
+    ways; the rap phase seconds and the block pairs multiplied. Returns
+    (row, failure or None)."""
+    import torch
+
+    from saena_tpu_torch import AMG, Matrix, Options, generators
+    from saena_tpu_torch.ops import bspgemm
+
+    A = Matrix()
+    A.set_csr(generators.laplacian3D(M, M, M))
+    A.assemble(device=dev, dtype=torch.float64)
+    out, row = {}, {}
+    for rap in ("host", "device"):
+        s = AMG(device=dev, dtype=torch.float64)
+        p0 = bspgemm.pairs_total
+        t0 = time.perf_counter()
+        s.set_matrix(A, Options(remove_boundary=True, setup_shards=0, rap=rap))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s.set_rhs(generators.laplacian3D_set_rhs(M, M, M))
+        _, res = s.solve_pCG()
+        out[rap] = s
+        row[rap] = {"wall_s": wall, "rap_s": s.info.phases.get("rap"),
+                    "phases_s": {k: round(v, 3) for k, v in s.info.phases.items()},
+                    "block_pairs": bspgemm.pairs_total - p0, "sizes": s.info.sizes,
+                    "iters": res.iters, "rel_res": float(res.rel_res)}
+    dev_lv, host_lv = out["device"].info.csr_levels, out["host"].info.csr_levels
+    row["level_err"] = [float(abs(a - b).max() / abs(b).max())
+                        for a, b in zip(dev_lv, host_lv)]
+    print("  " + json.dumps(row))
+    bad = None
+    if row["device"]["sizes"] != row["host"]["sizes"]:
+        bad = f"sizes {row['device']['sizes']} != host {row['host']['sizes']}"
+    elif max(row["level_err"]) > 1e-11:
+        bad = f"a level differs from the host product by {max(row['level_err']):.3e}"
+    elif not row["device"]["iters"] == row["host"]["iters"] == golden["iters"]:
+        bad = (f"iterations device {row['device']['iters']}, host "
+               f"{row['host']['iters']}, golden {golden['iters']}")
+    elif row["device"]["block_pairs"] <= 0:
+        bad = "the device engine multiplied no block pairs"
+    return row, bad
+
+
 # ---------------------------------------------------------- phase 4: times --
 
 
@@ -1187,6 +1493,46 @@ def time_dia(dev, ops, per_shape: dict) -> list:
     return rows
 
 
+def time_dia_bf16(dev, solver, per_op) -> list:
+    """K1 with bf16 data: the twins of levels 0 and 1 of the solver's
+    hierarchy (Options.smooth_dtype="bfloat16", f32 vectors), SpMV with an
+    f32 x (the V-cycle's twins take the SpMV, not the fused update, since
+    their dtype is not the vectors'): kernel, plain version, bound at bf16
+    data bytes, cuSPARSE's f32 product of the same operator (it has no
+    bf16-A / f32-x SpMV) and launches per solve (``per_op``, from
+    launches_per_operator)."""
+    from saena_tpu_torch.profiling import graph_ms
+
+    import torch
+
+    from saena_tpu_torch.ops import dia_spmv as dmod
+
+    rows = []
+    for l in (0, 1):
+        D, A = solver.hierarchy.levels[l].A_smooth, solver.info.csr_levels[l]
+        n, n_pad, nd = A.shape[0], D.n_pad, len(D.offsets)
+        x = torch.zeros(n_pad, dtype=torch.float32, device=dev)
+        x[:n] = torch.tensor(np.random.default_rng(5).standard_normal(n), device=dev)
+        nbytes = nd * D.data.element_size() * n_pad + 2 * 4 * n_pad
+        flops = 2 * nd * n_pad
+        b_ms, b_by = bound(nbytes, flops, "float32")
+        Acsr = csr_on_card(A, torch.float32, dev, n_pad, n_pad)
+        r = {"kernel": "dia_spmv", "shape": f"L{l} {nd}x{n_pad}", "dtype": "bfloat16",
+             "variant": "spmv", "plan": D.plan.describe(),
+             "ms": graph_ms(lambda: dmod.dia_spmv(
+                 D.data, x, D.offsets, offsets_dev=D.offsets_dev, plan=D.plan)),
+             "plain_ms": graph_ms(lambda: dmod.dia_spmv_plain(D.data, x, D.offsets),
+                                  reps=10, replays=5),
+             "library_ms": graph_ms(lambda: Acsr @ x),
+             "library_note": "cuSPARSE f32 SpMV (no bf16-A / f32-x call)",
+             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
+             "launches_per_solve": per_op.get(id(D.data), 0)}
+        r["share_of_bound"] = b_ms / r["ms"]
+        rows.append(r)
+        print("  " + json.dumps(r))
+    return rows
+
+
 def csr_on_card(A, dt, dev, n_rows_pad, n_cols_pad):
     """A as a torch CSR tensor padded to (n_rows_pad, n_cols_pad)."""
     import torch
@@ -1200,9 +1546,9 @@ def csr_on_card(A, dt, dev, n_rows_pad, n_cols_pad):
 
 def gather_bytes(kind, Mx) -> int:
     """Bytes the kernel must move on its path: the layout arrays and work
-    tables it reads, x and y."""
-    csz = Mx.vals.element_size()
-    nb = Mx.idx.numel() + Mx.vals.numel() * csz + Mx.n_cols_pad * csz
+    tables it reads, x and y (at the compute dtype: f32 for bf16 values)."""
+    csz = 8 if Mx.vals.element_size() == 8 else 4
+    nb = Mx.idx.numel() + Mx.vals.numel() * Mx.vals.element_size() + Mx.n_cols_pad * csz
     C = Mx.chunks
     if C is not None:
         nb += 4 * sum(t.numel() for t in C.tensors()[:3])
@@ -1229,10 +1575,12 @@ PR2_MS = {"L0_Pt": 9.331e-3, "L2_A_strip_pr8": 52.42e-3,
 
 
 def time_gather(dev, case, kind, M64, A_host, plain=True, library=True,
-                **extra):
-    """Kernel (and plain, cuSPARSE) ms of one strip/strip8 layout in f32, on
-    the path its wrapper picks (``ms``) and on each path (``rows_ms``,
-    ``stream_ms``)."""
+                vdt="float32", **extra):
+    """Kernel (and plain, cuSPARSE) ms of one strip/strip8 layout with
+    values at ``vdt`` (float32 or bfloat16; x and y f32), on the path its
+    wrapper picks (``ms``) and on each path (``rows_ms``, ``stream_ms``).
+    cuSPARSE has no SpMV of a bf16 A with an f32 x: its yardstick is the
+    f32 product of the same operator."""
     from saena_tpu_torch.profiling import graph_ms
 
     import torch
@@ -1240,7 +1588,11 @@ def time_gather(dev, case, kind, M64, A_host, plain=True, library=True,
     from saena_tpu_torch.ops import strip8_spmv as s8
     from saena_tpu_torch.ops import strip_spmv as s1
 
-    Mx = with_vals(M64, M64.vals.float())
+    Mx = with_vals(M64, M64.vals.to(getattr(torch, vdt)))
+    if Mx.chunks is not None and vdt == "bfloat16":
+        # the stream path's work cut for bf16's resident warps, as the
+        # twin's own layout has it
+        Mx.rechunk()
     kern = s1.strip_spmv if kind == "strip" else s8.strip8_spmv
     pl_fn = s1.strip_spmv_plain if kind == "strip" else s8.strip8_spmv_plain
     x = torch.zeros(Mx.n_cols_pad, dtype=torch.float32, device=dev)
@@ -1251,7 +1603,7 @@ def time_gather(dev, case, kind, M64, A_host, plain=True, library=True,
     b_ms, b_by = bound(nbytes, 2 * nnz, "float32")
     units = int(Mx.idx.shape[0] if kind == "strip" else Mx.tile_list.numel())
     path = path_of(Mx)
-    r = {"kernel": f"{kind}_spmv", "case": case, "dtype": "float32",
+    r = {"kernel": f"{kind}_spmv", "case": case, "dtype": vdt,
          "perrow": Mx.perrow, "units": units, "path": path,
          "ms": graph_ms(lambda: kern(Mx, x)), "pr2_ms": PR2_MS.get(case),
          "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
@@ -1276,6 +1628,8 @@ def time_gather(dev, case, kind, M64, A_host, plain=True, library=True,
             Mx.gather_idx.shape[0] * (128 // Mx.perrow)
         Acsr = csr_on_card(A_host, torch.float32, dev, n_rows, Mx.n_cols_pad)
         r["library_ms"] = graph_ms(lambda: Acsr @ x)
+        if vdt != "float32":
+            r["library_note"] = "cuSPARSE f32 SpMV (no bf16-A / f32-x call)"
     print("  " + json.dumps(r))
     return r
 
@@ -1311,29 +1665,31 @@ def solve_gather_ops(solver) -> list:
 
 
 def launches_per_operator(solver) -> dict:
-    """{id(layout): kernel launches in one pCG solve}, counted by wrapping
-    the gather wrappers for one solve of the uncaptured loop (a graph
-    replay calls no wrapper; phase 3f shows the two launch the same)."""
+    """{id(layout) or id(DIA data): kernel launches in one pCG solve},
+    counted by wrapping the kernels' wrappers for one solve of the
+    uncaptured loop (a graph replay calls no wrapper; phase 3f shows the
+    two launch the same)."""
     import torch
 
+    from saena_tpu_torch.ops import formats
     from saena_tpu_torch.ops import strip8_spmv as s8
     from saena_tpu_torch.ops import strip_spmv as s1
 
     counts: dict = {}
-    saved = (s1.strip_spmv, s8.strip8_spmv)
+    saved = (s1.strip_spmv, s8.strip8_spmv, formats.dia_spmv)
 
     def counting(fn):
-        def wrapped(A, x):
+        def wrapped(A, x, *args, **kw):
             counts[id(A)] = counts.get(id(A), 0) + 1
-            return fn(A, x)
+            return fn(A, x, *args, **kw)
         return wrapped
 
-    s1.strip_spmv, s8.strip8_spmv = counting(saved[0]), counting(saved[1])
+    s1.strip_spmv, s8.strip8_spmv, formats.dia_spmv = map(counting, saved)
     try:
         solver._run(eager_pcg)
         torch.cuda.synchronize()
     finally:
-        s1.strip_spmv, s8.strip8_spmv = saved
+        s1.strip_spmv, s8.strip8_spmv, formats.dia_spmv = saved
     return counts
 
 
@@ -1414,7 +1770,14 @@ def fit_constants(dev, ops, rows) -> dict:
 
 
 def main() -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of phase 3i's synthetic modal problem")
+    args = ap.parse_args()
 
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false: no CUDA card")
@@ -1430,7 +1793,7 @@ def main() -> int:
 
     def zero():
         for mod in counters.values():
-            mod.launches = 0
+            mod.launches = mod.bf16_launches = 0
         s1_mod.stream_launches = s8_mod.stream_launches = 0
         s8_mod.interval_launches = 0
         dia_mod.rows_launches = 0
@@ -1441,6 +1804,7 @@ def main() -> int:
         launches by shape must add up to its launches, and the row kernel
         must carry exactly those of operators of at most CHUNK diagonals."""
         out = {k: mod.launches for k, mod in counters.items()}
+        out.update({f"{k}/bf16": mod.bf16_launches for k, mod in counters.items()})
         for k, mod in (("strip_spmv", s1_mod), ("strip8_spmv", s8_mod)):
             out[f"{k}/stream"] = mod.stream_launches
             out[f"{k}/rows"] = mod.launches - mod.stream_launches
@@ -1505,6 +1869,12 @@ def main() -> int:
     gchecks, bad = check_gather(dev, cases)
     if bad:
         return fail(f"gather kernel disagrees with its plain version: {bad}")
+    worst_bf16 = {"dia_spmv": max(r[4] for r in checks if r[3] == "bfloat16")}
+    for k in ("strip", "strip8"):
+        worst_bf16[f"{k}_spmv"] = max(r[3] for r in gchecks
+                                      if r[2] == "bfloat16" and cases[r[0]][0] == k)
+    print("[2] worst row-sum-scaled error with bf16 values (f32 x and sums), "
+          "every case, configuration and path: " + json.dumps(worst_bf16))
 
     # ---- 3. main path
     print(f"[3a] main path f64, {M}^3, the card's picks (golden {GOLDEN})")
@@ -1560,7 +1930,7 @@ def main() -> int:
         return fail(f"entry points: {bad or bad32 or bad_count}")
     print(f"[3d] launches: {launches_d}")
     loops = {k[0] for k, L in solver64.hierarchy.graphs.items() if L.graphs}
-    if not {"_vcycle_iter", "_smoother_iter", "_cg"} <= loops:
+    if not {"_vcycle_iter", "_smoother_iter", "_cg", "_gmres"} <= loops:
         return fail(f"phase 3d's loops did not run through graphs: {sorted(loops)}")
     print(f"[3e] lazy updates on the card, f64, against the same sequence on the CPU")
     saved64 = [(sv, sv.hierarchy, sv._bound) for sv in (solver64, cpu64)]
@@ -1601,7 +1971,46 @@ def main() -> int:
     if bad_count:
         return fail(f"graph solves: {bad_count}")
     print(f"[3f] launches: {launches_f}; wall {time.perf_counter() - t3f:.1f} s")
-    for extra in (launches_d, launches_e, launches_f):
+
+    print(f"[3g] FGMRES(30) and pFGMRES through graphs against the uncaptured "
+          f"loop and the CPU, f64, {M}^3 ({SPREAD_REPS} solves each); {card}")
+    t0 = time.perf_counter()
+    zero()
+    gmres_rows, bad = fgmres_graphs(solver64, cpu64)
+    launches_g, bad_count = read()
+    if bad or bad_count:
+        return fail(f"FGMRES graphs: {bad or bad_count}")
+    print(f"[3g] launches: {launches_g}; wall {time.perf_counter() - t0:.1f} s")
+    print(f"[3h] {M}^3 solves with smooth_dtype twins (f32 + bf16 picker and "
+          "forced, f64 + f32), each against the same solve without twins")
+    t0 = time.perf_counter()
+    zero()
+    twin_rows, twins, bad = smooth_dtype_solves(dev, solver32, solver64)
+    launches_h, bad_count = read()
+    if bad or bad_count:
+        return fail(f"smooth_dtype solves: {bad or bad_count}")
+    if min(launches_h[f"{k}/bf16"] for k in counters) <= 0:
+        return fail(f"a kernel never launched with bf16 values: {launches_h}")
+    print(f"[3h] launches: {launches_h}; wall {time.perf_counter() - t0:.1f} s")
+    print(f"[3i] p-coarsening: kron(3-D Poisson {P_UNITS}^3 units, a {P_MODES}x"
+          f"{P_MODES} SPD modal block), seed {args.seed}, f64, against the CPU")
+    t0 = time.perf_counter()
+    zero()
+    p_row, bad = pcoarsen_solve(dev, args.seed)
+    launches_i, bad_count = read()
+    if bad or bad_count:
+        return fail(f"p-coarsening: {bad or bad_count}")
+    print(f"[3i] launches: {launches_i}; wall {time.perf_counter() - t0:.1f} s")
+    print(f"[3j] rap=\"device\" against rap=\"host\", {M}^3 f64 serial setup")
+    t0 = time.perf_counter()
+    zero()
+    rap_row, bad = rap_device(dev, golden)
+    launches_j, bad_count = read()
+    if bad or bad_count:
+        return fail(f"rap=device: {bad or bad_count}")
+    print(f"[3j] launches: {launches_j}; wall {time.perf_counter() - t0:.1f} s")
+    for extra in (launches_d, launches_e, launches_f, launches_g, launches_h,
+                  launches_i, launches_j):
         launches = {k: launches[k] + extra[k] for k in launches}
     print(f"[3] launches on the main path: {launches}")
     # every kernel and both paths of K2 and K3 (either strip8 mode will do)
@@ -1639,6 +2048,28 @@ def main() -> int:
     if not solve_rows or min(r["launches_per_solve"] for r in solve_rows) <= 0:
         return fail("a strip / strip8 operator of the f32 solve never launched: "
                     + json.dumps({r["case"]: r["launches_per_solve"] for r in solve_rows}))
+    print("[4] bf16 values (phase 3h's twins, f32 x): K1 SpMV at levels 0 and 1, "
+          "K3 on the picker's and K2 on the forced level-2 A, with launches per "
+          "solve")
+    from saena_tpu_torch.ops.strip_spmv import StripMatrix
+    s_bf = twins["f32_bf16"]
+    picker_bf = s_bf.hierarchy
+    per_bf = launches_per_operator(s_bf)
+    bf_rows = time_dia_bf16(dev, s_bf, per_bf)
+    s_bf.hierarchy = twins["f32_bf16_forced"]
+    per_forced = launches_per_operator(s_bf)
+    s_bf.hierarchy = picker_bf
+    for label, H, per in (("L2_A_twin", picker_bf, per_bf),
+                          ("L2_A_twin_forced", twins["f32_bf16_forced"], per_forced)):
+        T = H.levels[2].A_smooth
+        kind = "strip" if isinstance(T, StripMatrix) else "strip8"
+        bf_rows.append(time_gather(dev, label, kind, T, s_bf.info.csr_levels[2],
+                                   vdt="bfloat16",
+                                   launches_per_solve=per.get(id(T), 0)))
+    if min(r["launches_per_solve"] for r in bf_rows) <= 0 or \
+            {r["kernel"] for r in bf_rows} != set(counters):
+        return fail("a bf16 operator of phase 4 never launched in its solve: "
+                    + json.dumps([(r["kernel"], r["launches_per_solve"]) for r in bf_rows]))
     consts = fit_constants(dev, ops, grows)
     print("[4] fitted cost constants: " + json.dumps(consts))
     print(f"[4] total {time.perf_counter() - t_start:.1f} s")
@@ -1653,6 +2084,15 @@ def main() -> int:
     gerr = {c: max(e for c2, _, d, _, e in gchecks if c2 == c and d == "float32")
             for c, *_ in gchecks}
     grow = {r["case"]: r for r in grows}
+    # bf16 modes: phase 2's worst error of the mode, phase 4's time of the
+    # twin the solves ran (K1 on level 0)
+    bf_err = {"dia_spmv": max(e for case, cfg, v, d, _, e in checks
+                              if case == f"poisson{M}" and v == "spmv"
+                              and d == "bfloat16")}
+    for k in ("strip", "strip8"):
+        bf_err[f"{k}_spmv"] = max(e for c, _, d, _, e in gchecks
+                                  if d == "bfloat16" and cases[c][0] == k)
+    bf_row = {r["kernel"]: r for r in reversed(bf_rows)}
 
     def entry(name, source, replaces, r, err):
         return {"name": name, "route": "cuda", "source": source,
@@ -1670,7 +2110,11 @@ def main() -> int:
               gerr["L0_Pt"]),
         entry("strip8_spmv", "saena_tpu_torch/csrc/strip8_spmv.cu",
               "saena_tpu/ops/pallas_strip8_spmv.py:96", grow["L0_PtT"],
-              gerr["L0_PtT"])]}))
+              gerr["L0_PtT"])] + [
+        entry(f"{k}/bf16", f"saena_tpu_torch/csrc/{k}.cu", src, bf_row[k], bf_err[k])
+        for k, src in (("dia_spmv", "saena_tpu/ops/pallas_dia_spmv.py:148"),
+                       ("strip_spmv", "saena_tpu/ops/pallas_strip_spmv.py:116"),
+                       ("strip8_spmv", "saena_tpu/ops/pallas_strip8_spmv.py:96"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from saena_tpu_torch.amg.hierarchy import Hierarchy, SolveParams
-from saena_tpu_torch.amg.smoothers import smooth
+from saena_tpu_torch.amg.smoothers import smooth, smooth_operator
 
 
 def coarsest_cg(A, u, rhs, max_iter: int, tol: float):
@@ -61,8 +61,9 @@ def vcycle(hierarchy: Hierarchy, params: SolveParams, u, rhs, lvl: int = 0,
     # 1. pre-smooth
     u = smooth(level, params, u, rhs, params.preSmooth, u_is_zero=u_is_zero)
     # 2. residual (reference sign: res = A u - rhs), in one kernel pass
-    # where the format has a fused update
-    A = level.A
+    # where the format has a fused update; on the smoothers' operator, which
+    # is preconditioner-internal too
+    A = smooth_operator(level)
     fu = getattr(A, "fused_update", None)
     if fu is not None and A.dtype == u.dtype:
         res = fu(u, rhs, c=-1.0, add_x=False)

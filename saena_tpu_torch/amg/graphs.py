@@ -12,9 +12,11 @@ stop flag ``go``) and three parts that read and write them in place:
 - ``fini`` computes the exit values.
 
 ``run`` calls ``init``, then ``step`` while the host reads ``go`` as true
-(one sync an iteration, the stopping test), then ``fini``. On the card the
-parts are captured into ``torch.cuda.CUDAGraph``s at the first run and
-replayed after; on the CPU the same parts are called directly. A capture
+(one sync an iteration, the stopping test), then ``fini``. A loop may have
+a fourth part, ``restart`` (FGMRES's restart boundary): ``go`` then holds
+RESTART when it is due, and ``run`` calls it in place of ``step``. On the
+card the parts are captured into ``torch.cuda.CUDAGraph``s at the first
+run and replayed after; on the CPU the same parts are called directly. A capture
 that fails raises ``GraphCaptureError`` naming the op that broke it; there
 is no fallback to the uncaptured loop.
 
@@ -25,6 +27,7 @@ same loop run without graphs.
 """
 from __future__ import annotations
 
+import gc
 import os
 import time
 import traceback
@@ -36,11 +39,13 @@ from saena_tpu_torch.ops import dia_spmv, strip8_spmv, strip_spmv
 
 # the wrappers' launch counters: (module, integer counters); the DIA
 # wrapper's launches by shape are a dict, dia_spmv.shape_launches
-_COUNTERS = ((dia_spmv, ("launches", "rows_launches")),
-             (strip_spmv, ("launches", "stream_launches")),
-             (strip8_spmv, ("launches", "stream_launches", "interval_launches")))
+_COUNTERS = ((dia_spmv, ("launches", "rows_launches", "bf16_launches")),
+             (strip_spmv, ("launches", "stream_launches", "bf16_launches")),
+             (strip8_spmv, ("launches", "stream_launches", "interval_launches",
+                            "bf16_launches")))
 
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RESTART = 2    # the value of ``go`` when a loop's restart part is next
 
 
 class GraphCaptureError(RuntimeError):
@@ -102,6 +107,12 @@ class Graph:
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         self.graph = torch.cuda.CUDAGraph()
+        # a graph that the cyclic collector frees during the capture (one
+        # of a dropped hierarchy's loops, held in a reference cycle) resets
+        # inside it and invalidates the capture: the collector stays off
+        # until the capture ends, and such garbage waits for its next run
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.stream(side):
                 # worker threads of the setup may still touch the card:
@@ -116,6 +127,8 @@ class Graph:
             raise GraphCaptureError(
                 f"capturing {what} failed at {_where(e)}: {e}") from e
         finally:
+            if collecting:
+                gc.enable()
             torch.cuda.current_stream(dev).wait_stream(side)
         self.delta = _delta(before, counts())
         restore(before)
@@ -126,14 +139,15 @@ class Graph:
 
 
 class Loop:
-    """A solver's state (``s``, static tensors) and its three parts; see
-    the module docstring. ``capture_ms`` is the wall time of the first
-    run's warm-up and captures on the card, None before them."""
+    """A solver's state (``s``, static tensors) and its three parts, and
+    optionally a fourth, ``restart``; see the module docstring.
+    ``capture_ms`` is the wall time of the first run's warm-up and captures
+    on the card, None before them."""
 
     def __init__(self, state: types.SimpleNamespace, init, step, fini,
-                 name: str):
+                 name: str, restart=None):
         self.s = state
-        self.parts = (init, step, fini)
+        self.parts = (init, step, fini) + ((restart,) if restart else ())
         self.name = name
         self.graphs = None
         self.capture_ms = None
@@ -154,7 +168,7 @@ class Loop:
         torch.cuda.current_stream(dev).wait_stream(side)
         restore(before)
         self.graphs = tuple(Graph(p, f"{self.name} {w}") for p, w in
-                            zip(self.parts, ("init", "step", "fini")))
+                            zip(self.parts, ("init", "step", "fini", "restart")))
         torch.cuda.synchronize(dev)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
 
@@ -163,10 +177,13 @@ class Loop:
         graph replays when ``graphs``; returns the iterations taken."""
         if graphs and self.graphs is None:
             self._capture()
-        init, step, fini = self.graphs if graphs else self.parts
+        init, step, fini, *restart = self.graphs if graphs else self.parts
         init()
         iters = 0
-        while bool(self.s.go):          # the iteration's host sync
+        while go := int(self.s.go):     # the iteration's host sync
+            if go == RESTART:
+                restart[0]()
+                continue
             step()
             iters += 1
         fini()

@@ -7,10 +7,15 @@ ELL and dense operators, inverse diagonals, the cached coarse solve) that
 the V-cycle and pCG consume (ref saena_object::setup, saena_object.cpp:
 175-406).
 
-The coarsening loop takes a ``coarsen_fn`` hook: the shard-parallel setup
+``setup(p_levels=)`` applies p-coarsening injections first (amg/pcoarsen.py,
+the Galerkin product on the host), then h-coarsening takes over. The
+coarsening loop takes a ``coarsen_fn`` hook: the shard-parallel setup
 (parallel/dist_setup.py), which ``AMG.set_matrix`` takes by default, plugs
-in there with a bitwise-identical result. Each level's Lanczos eig estimate
-runs on a worker thread behind the coarsening of deeper levels, and
+in there with a bitwise-identical result. ``Options(rap="device")`` computes
+each serial coarsening's Galerkin product with the block-sparse engine of
+ops/bspgemm.py on the hierarchy's device (f64), "host" with the native
+SpGEMM. Each level's Lanczos eig estimate runs on a worker thread behind
+the coarsening of deeper levels, and
 ``devicify`` builds the levels on the same executor, assembled in level
 order. ``devicify(reuse=...)`` is the lazy-update path: it reuses unchanged
 levels, and the eig estimate, format plans and P/R of levels whose pattern
@@ -24,6 +29,11 @@ level's own A) wherever their estimate beats the direct P/R, which
 otherwise take the gather picker too. ``Options(structural_transfers=
 "force")`` builds the structural transfers on any device whenever the
 level's A is symmetric; ``structural_transfers=False`` never does.
+
+``Options.smooth_dtype`` gives every level but the coarsest a twin of A at
+that dtype (``Level.A_smooth``, built from the same host arrays, sharing A's
+index arrays and layout), which the smoothers and the V-cycle's residual
+use; the outer Krylov method uses A.
 """
 from __future__ import annotations
 
@@ -86,6 +96,9 @@ class Level:
     inv_diag: torch.Tensor                   # (n_pad,)
     P: Optional[DeviceMatrix]                # (n, n_coarse)
     R: Optional[DeviceMatrix]                # (n_coarse, n)
+    # A at Options.smooth_dtype for the smoothers and the V-cycle's
+    # residual (preconditioner-internal); the outer Krylov method uses A
+    A_smooth: Optional[DeviceMatrix] = None
     n: int = 0                               # logical size
     lvl: int = 0
     eig_max: Optional[float] = None          # lambda_max(D^{-1}A)*1.0001
@@ -277,11 +290,15 @@ def dtype_name(dtype: torch.dtype) -> str:
 # ---------------------------------------------------------------------------
 
 
-def coarsen_csr(A: sp.csr_matrix, lvl: int, opts: Options, timer: PhaseTimer):
+def coarsen_csr(A: sp.csr_matrix, lvl: int, opts: Options, timer: PhaseTimer,
+                device=None):
     """One h-coarsening step: aggregation -> P -> R -> filtered Galerkin Ac.
     Returns (P, R, Ac, last_flag, theta_used, struct) or None when
     coarsening is not possible (ref coarsen(), saena_object.cpp:409-538);
-    ``struct`` is (agg, wq) when the structural transfers apply."""
+    ``struct`` is (agg, wq) when the structural transfers apply.
+    ``Options(rap="device")`` takes the Galerkin product through the
+    block-sparse engine on ``device`` in f64 (the JAX package's x64 branch,
+    saena_tpu/amg/hierarchy.py:335-343)."""
     n = A.shape[0]
     with timer.phase("aggregation"):
         if opts.aggregation == "double":
@@ -303,7 +320,15 @@ def coarsen_csr(A: sp.csr_matrix, lvl: int, opts: Options, timer: PhaseTimer):
                                  psmoother=opts.PSmoother)
         R = restriction(P)
     with timer.phase("rap"):
-        Ac = galerkin_product(R, A, P)
+        if opts.rap == "device":
+            # host symbolic, batched block products on the device
+            # (ops/bspgemm.py)
+            from saena_tpu_torch.ops.bspgemm import spgemm_blocks
+
+            dev = resolve_device(device)
+            Ac = spgemm_blocks(spgemm_blocks(R, A, device=dev), P, device=dev)
+        else:
+            Ac = galerkin_product(R, A, P)
     with timer.phase("coarsen_tail"):
         P, R, Ac, agg, struct = coarsen_tail(A, P, R, Ac, agg, lvl, opts)
     return P, R, Ac, last, theta, struct
@@ -349,30 +374,28 @@ def coarsen_tail(A, P, R, Ac, agg, lvl: int, opts: Options):
     return P, R, Ac, agg, struct
 
 
-def _check_supported(opts: Options) -> None:
-    if opts.smooth_dtype:
-        raise NotImplementedError("Options.smooth_dtype is not ported yet")
-    if opts.rap != "host":
-        raise NotImplementedError(f"Options.rap={opts.rap!r} is not ported; use 'host'")
-
-
 def setup(
     A: sp.csr_matrix,
     opts: Optional[Options] = None,
     dtype=None,
     device=None,
     use_dense: bool = False,
+    p_levels=None,
     coarsen_fn=None,
 ) -> tuple[Hierarchy, SetupInfo]:
     """Build the AMG hierarchy of a host CSR matrix on ``device`` (the card
     unless named) at ``dtype`` (torch's default unless named).
 
+    ``p_levels``: host prolongation CSRs applied first (the p-coarsening
+    path for high-order FEM, ref saena_object_pcoarsen_modal.cpp), each
+    with R = P^T and the host Galerkin product, before h-coarsening takes
+    over; built by amg/pcoarsen.py.
+
     ``coarsen_fn``: a replacement for :func:`coarsen_csr` with the same
-    (A, lvl, opts, timer) -> (P, R, Ac, last, theta, struct) | None
+    (A, lvl, opts, timer, device) -> (P, R, Ac, last, theta, struct) | None
     contract; the shard-parallel setup (parallel/dist_setup.py) plugs in
     here."""
     opts = opts or Options()
-    _check_supported(opts)
     device = resolve_device(device)
     dtype = resolve_dtype(dtype)
     timer = PhaseTimer()
@@ -408,30 +431,41 @@ def setup(
         with timer.phase("eig"):
             return eig_max_invdiag_host(Acur)
 
+    def _add_level(P, R, Ac, theta, kind, struct):
+        """Append a coarse level; the level it came from is now final, so
+        its eig estimate starts on the executor."""
+        lvl = len(csr_levels) - 1
+        Ps.append(P)
+        Rs.append(R)
+        thetas.append(theta)
+        kinds.append(kind)
+        structs.append(struct)
+        if opts.smoother == "chebyshev" and not (lvl == 0 and opts.eig > 0):
+            eig_futs[lvl] = exe.submit(_timed_eig, csr_levels[lvl])
+        csr_levels.append(Ac)
+
     # the executor runs each level's Lanczos eig estimate behind the
     # coarsening of deeper levels (a level's lambda_max is final once its
     # coarse level exists), then devicify's level builds; FIFO order puts
     # every eig ahead of the builds that wait on it
     exe = ThreadPoolExecutor(max_workers=_setup_workers())
     try:
+        for P in p_levels or ():
+            R = restriction(P)
+            with timer.phase("rap"):
+                Ac = galerkin_product(R, csr_levels[-1], P)
+            _add_level(P, R, Ac, None, "p", None)
         while len(csr_levels) - 1 < opts.max_level:
             Acur = csr_levels[-1]
             lvl = len(csr_levels) - 1
             if opts.dynamic_levels and \
                     Acur.shape[0] <= opts.least_row_threshold:
                 break
-            out = (coarsen_fn or coarsen_csr)(Acur, lvl, opts, timer)
+            out = (coarsen_fn or coarsen_csr)(Acur, lvl, opts, timer, device)
             if out is None:
                 break
             P, R, Ac, last, theta, struct = out
-            Ps.append(P)
-            Rs.append(R)
-            csr_levels.append(Ac)
-            thetas.append(theta)
-            kinds.append("h")
-            structs.append(struct)
-            if opts.smoother == "chebyshev" and not (lvl == 0 and opts.eig > 0):
-                eig_futs[lvl] = exe.submit(_timed_eig, Acur)
+            _add_level(P, R, Ac, theta, "h", struct)
             if last:
                 break
 
@@ -674,6 +708,14 @@ def _level_task(l, is_coarsest, csr_levels, Ps, Rs, structs, opts, dtype,
     Acsr = csr_levels[l]
     # storage reduction only under the opt-in float_storage flag
     dt = low_dtype if (opts.float_storage and l >= opts.float_level) else dtype
+    # the smoothers' twin of A, from the same host arrays (none on the
+    # coarsest level, none at the level's own dtype)
+    sm_dt = None
+    if opts.smooth_dtype and not is_coarsest:
+        sm_dt = getattr(torch, opts.smooth_dtype)
+        if sm_dt == dt:
+            sm_dt = None
+    A_smooth = None
     with timer.phase("devicify_A"):
         if is_coarsest and opts.direct_solver == "LU":
             Adev = dense_from_csr(Acsr, dt, device, unit_diag_pad=True, timer=timer)
@@ -683,7 +725,9 @@ def _level_task(l, is_coarsest, csr_levels, Ps, Rs, structs, opts, dtype,
                 dense_thre=opts.dense_thre,
                 dense_sz_thre=opts.dense_sz_thre,
                 switch_to_dense=opts.switch_to_dense and (l > 0 or use_dense),
-                timer=timer)
+                smooth_dtype=sm_dt, timer=timer)
+            if sm_dt is not None:
+                Adev, A_smooth = Adev
     n = Acsr.shape[0]
     n_pad = pad_to(n)
     diag = Acsr.diagonal()
@@ -723,6 +767,7 @@ def _level_task(l, is_coarsest, csr_levels, Ps, Rs, structs, opts, dtype,
     # inv_diag carries the VECTOR dtype: smoother arithmetic stays at full
     # precision while a float_storage operator's matvec runs reduced
     level = Level(A=Adev, inv_diag=to_device(inv_diag, dtype, device, timer),
-                  P=P_dev, R=R_dev, n=n, lvl=l, eig_max=eig)
+                  P=P_dev, R=R_dev, A_smooth=A_smooth, n=n, lvl=l,
+                  eig_max=eig)
     return level, (n, int(Acsr.nnz), Acsr.nnz / max(1, n * n),
                    type(Adev).__name__, dtype_name(dt))

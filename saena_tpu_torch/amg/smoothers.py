@@ -62,14 +62,23 @@ def chebyshev(A, inv_diag, eig_max: float, u, rhs, iters: int,
     return u
 
 
+def smooth_operator(level):
+    """The operator of a level's smoothers and V-cycle residual: its
+    reduced-precision twin when one was built (Options.smooth_dtype), else
+    A. The outer Krylov method always uses A."""
+    return level.A if level.A_smooth is None else level.A_smooth
+
+
 def smooth(level, params, u, rhs, iters: int, u_is_zero: bool = False):
-    """Dispatch like saena_object::smooth (saena_object.tpp:5-16)."""
+    """Dispatch like saena_object::smooth (saena_object.tpp:5-16), on the
+    level's smoothing operator."""
     if iters <= 0:
         return u
+    A = smooth_operator(level)
     if params.smoother == "jacobi":
-        return jacobi(level.A, level.inv_diag, u, rhs, iters,
+        return jacobi(A, level.inv_diag, u, rhs, iters,
                       params.jacobi_omega, u_is_zero=u_is_zero)
     elif params.smoother == "chebyshev":
-        return chebyshev(level.A, level.inv_diag, level.eig_max, u, rhs,
+        return chebyshev(A, level.inv_diag, level.eig_max, u, rhs,
                          iters, u_is_zero=u_is_zero)
     raise ValueError(f"unknown smoother {params.smoother!r}")

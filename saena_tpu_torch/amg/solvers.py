@@ -6,20 +6,22 @@ convention r = A u - rhs, update u -= alpha p, stop when ||r||^2 <
 ||r0||^2 * tol^2, with the JAX package's periodic residual replacement
 (``SolveParams.residual_replace``).
 
-pCG, the stationary iteration, the smoother iteration and CG are each an
-``amg.graphs.Loop`` (the counterpart of the JAX package's jitted
-``while_loop``s): one iteration body on static tensors with no host sync,
-frozen once its stop flag drops. On the card the body runs as CUDA graph
-replays, captured at the first solve and cached on the hierarchy by
-(solver, SolveParams, dtype, max_iter); ``tol`` lives in a device buffer.
-The host reads the stop flag once an iteration. On the CPU the same body is
-called directly.
+pCG, the stationary iteration, the smoother iteration, CG and the FGMRES
+device engine are each an ``amg.graphs.Loop`` (the counterpart of the JAX
+package's jitted ``while_loop``s): one iteration body on static tensors
+with no host sync, frozen once its stop flag drops. On the card the body
+runs as CUDA graph replays, captured at the first solve and cached on the
+hierarchy by (solver, SolveParams, dtype, max_iter and, for FGMRES,
+restart and precondition); ``tol`` lives in a device buffer. The host reads
+the stop flag once an iteration (FGMRES: once an Arnoldi step and once a
+restart boundary). On the CPU the same body is called directly.
 
 The reference declares GMRES/pGMRES but ships them disabled (solve.cpp:3805,
 :4074 are `#if 0`); solve_GMRES is a working right-preconditioned restarted
 FGMRES, with the JAX package's two engines: "device" (the Arnoldi
-recurrence on tensors, breakdowns masked) and "host" (numpy Arnoldi, the
-parity oracle). Both keep a Python loop with one host sync a step.
+recurrence on tensors, fixed masked MGS and Givens sweeps, breakdowns
+masked) and "host" (numpy Arnoldi with one host sync a step, the parity
+oracle).
 """
 from __future__ import annotations
 
@@ -217,25 +219,29 @@ def _finalize(hierarchy: Hierarchy, res: SolveResult) -> SolveResult:
 
 
 def _loop(build, hierarchy: Hierarchy, params: SolveParams, max_iter: int,
-          rhs) -> _g.Loop:
+          rhs, **kw) -> _g.Loop:
     """The hierarchy's cached loop of ``build`` (one of _pcg, _vcycle_iter,
-    _smoother_iter, _cg), made at its first use."""
-    key = (build.__name__, params, hierarchy.dtype, max_iter)
+    _smoother_iter, _cg, _gmres, with its keyword arguments ``kw``), made at
+    its first use."""
+    key = (build.__name__, params, hierarchy.dtype, max_iter,
+           *sorted(kw.items()))
     loop = hierarchy.graphs.get(key)
     if loop is None:
-        loop = hierarchy.graphs[key] = build(hierarchy, params, rhs, max_iter)
+        loop = hierarchy.graphs[key] = build(hierarchy, params, rhs, max_iter,
+                                             **kw)
     return loop
 
 
 def _solve(build, hierarchy: Hierarchy, rhs, params=None, tol: float = 1e-8,
-           max_iter: int = 100, graphs=None) -> SolveResult:
-    """Run the loop of ``build`` on ``rhs``: as graph replays on the card
-    (``graphs=None``), or its body called directly (``graphs=False``, the
-    uncaptured loop the checks compare the graphs with). The result's
-    tensors are copies, not the loop's buffers."""
+           max_iter: int = 100, graphs=None, **kw) -> SolveResult:
+    """Run the loop of ``build`` (with its keyword arguments ``kw``) on
+    ``rhs``: as graph replays on the card (``graphs=None``), or its body
+    called directly (``graphs=False``, the uncaptured loop the checks
+    compare the graphs with). The result's tensors are copies, not the
+    loop's buffers."""
     params = params or SolveParams()
     rhs = _prep_rhs(hierarchy, rhs)
-    loop = _loop(build, hierarchy, params, max_iter, rhs)
+    loop = _loop(build, hierarchy, params, max_iter, rhs, **kw)
     s = loop.s
     s.rhs.copy_(rhs)
     s.tol.fill_(tol)
@@ -243,7 +249,8 @@ def _solve(build, hierarchy: Hierarchy, rhs, params=None, tol: float = 1e-8,
         graphs = hierarchy.device.type == "cuda"
     iters = loop.run(graphs)
     res = SolveResult(u=s.u.clone(), iters=iters, init_res=s.init_res.clone(),
-                      final_res=s.final_res.clone(), history=s.hist.clone(),
+                      final_res=s.final_res.clone(),
+                      history=s.hist.to(s.rhs.dtype, copy=True),
                       true_res=s.true_res.clone())
     return _finalize(hierarchy, res)
 
@@ -275,20 +282,37 @@ def solve_CG(hierarchy: Hierarchy, rhs, params=None, tol: float = 1e-8,
     return _solve(_cg, hierarchy, rhs, SolveParams(), tol, max_iter)
 
 
-def _history(max_iter: int, first, dtype) -> torch.Tensor:
-    hist = torch.full((max_iter + 1,), float("nan"), dtype=dtype,
-                      device=first.device)
-    hist[0] = first
-    return hist
+def _back_substitute(Hm: torch.Tensor, gm: torch.Tensor) -> torch.Tensor:
+    """y of the upper triangular system Hm y = gm, one row at a time from
+    the last: m steps of small tensor ops, none of which syncs."""
+    m = gm.shape[0]
+    y = torch.zeros_like(gm)
+    y[m - 1] = gm[m - 1] / Hm[m - 1, m - 1]
+    for i in range(m - 2, -1, -1):
+        y[i] = (gm[i] - torch.dot(Hm[i, i + 1:], y[i + 1:])) / Hm[i, i]
+    return y
 
 
-def _gmres_device(hierarchy: Hierarchy, params: SolveParams, rhs,
-                  tol: float, max_iter: int, restart: int,
-                  precondition: bool) -> SolveResult:
-    """Restarted FGMRES, right-preconditioned by one V-cycle, on tensors:
-    modified Gram-Schmidt over j <= k, Givens rotations, the triangular
-    solve. The small H, g, cs, sn are carried at >= f32 (``hdt``); one host
-    sync an Arnoldi step (the stopping test).
+def _gmres(hierarchy: Hierarchy, params: SolveParams, rhs, max_iter: int,
+           restart: int = 30, precondition: bool = True):
+    """Restarted FGMRES, right-preconditioned by one V-cycle when
+    ``precondition``: the JAX package's device engine
+    (saena_tpu/amg/solvers.py:242-370) as a loop of static tensors.
+
+    State: V (m + 1, n), Z (m, n), and H (m + 1, m), g, cs, sn at ``hdt`` =
+    promote(dtype, f32); the Arnoldi index k, the iteration counter, the
+    residual and the stop flag ``go`` on the device. ``go`` is 0 (stop), 1
+    (an Arnoldi step is next) or 2 (a restart boundary is next). ``step``
+    is one Arnoldi step: modified Gram-Schmidt over a fixed j = 0..m with
+    the updates masked by j <= k (subtracting 0 V[j] is an exact no-op) and
+    the Givens sweep over a fixed j < m masked by j < k, so no host value
+    decides a shape. The Arnoldi cycle ends, as in the JAX engine, at k = m,
+    at ``max_iter`` iterations, at convergence or at a breakdown; then the
+    ``restart`` part solves the padded triangular system (unit diagonals
+    and zero rhs past k), adds y^T Z to u, writes the true residual into
+    the history at the last iteration and starts the next cycle, or sets
+    ``go`` to 0. Each part leaves the state as it is when ``go`` is not
+    its own.
 
     Total breakdown (the rotated Hcol[k] and h_next both zero: A z lies in
     span(V) with no diagonal left) would make the rotation 0/0; it is
@@ -296,86 +320,138 @@ def _gmres_device(hierarchy: Hierarchy, params: SolveParams, rhs,
     entry, so y[k] = 0, and ends the cycle: the restart recomputes the
     true residual and carries on."""
     A = hierarchy.levels[0].A
-    n = rhs.shape[0]
+    n, m = rhs.shape[0], restart
     dtype, dev = rhs.dtype, rhs.device
     hdt = torch.promote_types(dtype, torch.float32)   # H / Givens precision
-    m = restart
     tiny = torch.finfo(hdt).tiny
+    kw = dict(dtype=hdt, device=dev)
+    s = _g.new_state(rhs, max_iter, vectors=("u",), scalars=_OUT)
+    s.hist = torch.full((max_iter + 1,), float("nan"), **kw)
+    s.go = torch.zeros((), dtype=torch.int64, device=dev)
+    s.k = torch.zeros((), dtype=torch.int64, device=dev)
+    s.V = torch.zeros((m + 1, n), dtype=dtype, device=dev)
+    s.Z = torch.zeros((m, n), dtype=dtype, device=dev)
+    s.H = torch.zeros((m + 1, m), **kw)
+    s.g = torch.zeros(m + 1, **kw)
+    s.cs = torch.zeros(m, **kw)
+    s.sn = torch.zeros(m, **kw)
+    for name in ("init", "res", "thr"):
+        setattr(s, name, torch.zeros((), **kw))
+    rows = torch.arange(m + 1, device=dev)
+    eye = torch.eye(m, dtype=torch.bool, device=dev)
+    eye2 = torch.eye(2, **kw)
 
     def M(v):
         if precondition:
             return vcycle(hierarchy, params, torch.zeros_like(v), v)
         return v
 
-    u = torch.zeros_like(rhs)
-    r = rhs - A.matvec(u)
-    init_res = torch.linalg.norm(r).to(hdt)
-    thr = init_res * tol
-    hist = _history(max_iter, init_res, hdt)
-    res_norm = init_res
-    total_it = 0
-    while total_it < max_iter and bool(res_norm >= thr):
-        V = torch.zeros((m + 1, n), dtype=dtype, device=dev)
-        Z = torch.zeros((m, n), dtype=dtype, device=dev)
-        H = torch.zeros((m + 1, m), dtype=hdt, device=dev)
-        g = torch.zeros(m + 1, dtype=hdt, device=dev)
-        g[0] = res_norm
-        cs = torch.zeros(m, dtype=hdt, device=dev)
-        sn = torch.zeros(m, dtype=hdt, device=dev)
-        V[0] = r / res_norm.to(dtype)
-        k = 0
-        go = True
-        while k < m and total_it < max_iter and go:
-            z = M(V[k])
-            w = A.matvec(z).to(hdt)
-            Z[k] = z
-            Hcol = torch.zeros(m + 1, dtype=hdt, device=dev)
-            for j in range(k + 1):                      # modified Gram-Schmidt
-                Vj = V[j].to(hdt)
-                hjk = torch.dot(Vj, w)
-                w = w - hjk * Vj
-                Hcol[j] = hjk
-            h_next = torch.linalg.norm(w)
-            Hcol[k + 1] = h_next
-            ok = h_next > tiny
-            V[k + 1] = torch.where(ok, w / torch.where(ok, h_next, 1.0),
-                                   0.0).to(dtype)
-            for j in range(k):                          # earlier rotations
-                t = cs[j] * Hcol[j] + sn[j] * Hcol[j + 1]
-                t2 = -sn[j] * Hcol[j] + cs[j] * Hcol[j + 1]
-                Hcol[j] = t
-                Hcol[j + 1] = t2
-            d = torch.hypot(Hcol[k], Hcol[k + 1])
-            dz = d <= tiny
-            d_safe = torch.where(dz, 1.0, d)
-            ck = torch.where(dz, 1.0, Hcol[k] / d_safe)
-            sk = torch.where(dz, 0.0, Hcol[k + 1] / d_safe)
-            cs[k] = ck
-            sn[k] = sk
-            Hcol[k] = d_safe
-            Hcol[k + 1] = 0.0
-            H[:, k] = Hcol
-            gk = g[k].clone()
-            g[k + 1] = -sk * gk
-            g[k] = torch.where(dz, 0.0, ck * gk)
-            rn = torch.abs(g[k + 1])
-            hist[total_it + 1] = rn
-            k += 1
-            total_it += 1
-            go = bool((rn >= thr) & ok & ~dz)          # the step's host sync
-        # y = H[:k, :k]^{-1} g[:k]: H is upper triangular after the
-        # rotations; zero breakdown columns have a unit diagonal and y = 0
-        y = torch.linalg.solve_triangular(H[:k, :k], g[:k, None],
-                                          upper=True)[:, 0]
-        u = u + y.to(dtype) @ Z[:k]
-        r = rhs - A.matvec(u)
-        res_norm = torch.linalg.norm(r).to(hdt)
+    def set_row(X, j, row, act):
+        """X[j] = row where ``act``; j a (1,) index tensor."""
+        X.index_copy_(0, j, torch.where(act, row, X.index_select(0, j)[0])[None])
+
+    def new_cycle(r, res, act):
+        """Where ``act``: V[0] = r / res, g = res e0, the rest zero, k = 0
+        (the JAX engine's restart_body prologue)."""
+        for X in (s.V, s.Z, s.H, s.g, s.cs, s.sn, s.k):
+            X.masked_fill_(act, 0)
+        s.V[0] = torch.where(act, r / res.to(dtype), s.V[0])
+        s.g[0] = torch.where(act, res, s.g[0])
+
+    def init():
+        u = torch.zeros_like(s.rhs)
+        r = s.rhs - A.matvec(u)
+        res = torch.linalg.norm(r).to(hdt)
+        s.u.copy_(u)
+        s.init.copy_(res)
+        s.res.copy_(res)
+        s.thr.copy_(res * s.tol.to(hdt))
+        new_cycle(r, res, torch.ones((), dtype=torch.bool, device=dev))
+        s.hist.fill_(float("nan"))
+        s.hist[:1].copy_(res.reshape(1))
+        s.i.zero_()
+        s.go.copy_((res >= s.thr) & (max_iter > 0))
+
+    def step():
+        act = s.go == 1
+        k = s.k
+        k0, k1 = k.reshape(1), (k + 1).reshape(1)
+        z = M(s.V.index_select(0, k0)[0])
+        w = A.matvec(z).to(hdt)
+        set_row(s.Z, k0, z, act)
+        jle = rows <= k
+        hs = []
+        for j in range(m + 1):                       # modified Gram-Schmidt
+            Vj = s.V[j].to(hdt)
+            hjk = torch.where(jle[j], torch.dot(Vj, w), 0.0)
+            w = w - hjk * Vj
+            hs.append(hjk)
+        h_next = torch.linalg.norm(w)
+        Hcol = torch.stack(hs).index_copy(0, k1, h_next.reshape(1))
+        ok = h_next > tiny
+        set_row(s.V, k1, torch.where(ok, w / torch.where(ok, h_next, 1.0),
+                                     0.0).to(dtype), act)
+        # the earlier rotations j < k, each [[c, s], [-s, c]] (the identity
+        # past k) on entries j, j + 1
+        rot = torch.stack([torch.stack([s.cs, s.sn], -1),
+                           torch.stack([-s.sn, s.cs], -1)], 1)
+        rot = torch.where((rows[:m] < k)[:, None, None], rot, eye2)
+        a, out = Hcol[0], []
+        for j in range(m):
+            t = torch.mv(rot[j], torch.stack([a, Hcol[j + 1]]))
+            out.append(t[0])
+            a = t[1]
+        Hcol = torch.stack(out + [a])
+        hk, hk1 = Hcol.index_select(0, k0)[0], Hcol.index_select(0, k1)[0]
+        d = torch.hypot(hk, hk1)
+        dz = d <= tiny
+        d_safe = torch.where(dz, 1.0, d)
+        ck = torch.where(dz, 1.0, hk / d_safe)
+        sk = torch.where(dz, 0.0, hk1 / d_safe)
+        Hcol = Hcol.index_copy(0, k0, d_safe.reshape(1)).index_copy(
+            0, k1, torch.zeros_like(d).reshape(1))
+        gk = s.g.index_select(0, k0)[0]
+        g = s.g.index_copy(0, k1, (-sk * gk).reshape(1)).index_copy(
+            0, k0, torch.where(dz, 0.0, ck * gk).reshape(1))
+        rn = torch.abs(-sk * gk)
+        _g.keep(act, (s.H, s.H.index_copy(1, k0, Hcol[:, None])),
+                (s.cs, s.cs.index_copy(0, k0, ck.reshape(1))),
+                (s.sn, s.sn.index_copy(0, k0, sk.reshape(1))), (s.g, g),
+                (s.res, rn))
+        idx = torch.clamp(s.i + 1, max=max_iter).reshape(1)
+        s.hist.index_copy_(0, idx, torch.where(act, rn.reshape(1),
+                                               s.hist.index_select(0, idx)))
+        torch.where(act, k + 1, k, out=s.k)
+        torch.where(act, s.i + 1, s.i, out=s.i)
+        more = (s.k < m) & (s.i < max_iter) & (rn >= s.thr) & ok & ~dz
+        torch.where(act, torch.where(more, 1, 2), s.go, out=s.go)
+
+    def restart_():
+        act = s.go == 2
+        active = rows[:m] < s.k
+        Hm = s.H[:m, :m] * active[None, :]
+        Hm = torch.where(eye & ~active[None, :], 1.0, Hm)
+        y = _back_substitute(Hm, torch.where(active, s.g[:m], 0.0))
+        u = s.u + y.to(dtype) @ s.Z
+        r = s.rhs - A.matvec(u)
+        res = torch.linalg.norm(r).to(hdt)
         # the last Givens estimate gives way to the true residual at the
         # restart boundary
-        hist[total_it] = res_norm
-    return SolveResult(u=u, iters=total_it, init_res=init_res.to(dtype),
-                       final_res=res_norm.to(dtype), history=hist.to(dtype),
-                       true_res=res_norm.to(dtype))
+        idx = s.i.reshape(1)
+        s.hist.index_copy_(0, idx, torch.where(act, res.reshape(1),
+                                               s.hist.index_select(0, idx)))
+        _g.keep(act, (s.u, u), (s.res, res))
+        more = (res >= s.thr) & (s.i < max_iter)
+        new_cycle(r, res, act & more)
+        torch.where(act, more.to(s.go.dtype), s.go, out=s.go)
+
+    def fini():
+        s.init_res.copy_(s.init)
+        s.final_res.copy_(s.res)
+        s.true_res.copy_(s.res)
+
+    return _g.Loop(s, init, step, fini, "FGMRES" if precondition else "GMRES",
+                   restart=restart_)
 
 
 def _gmres_host(hierarchy: Hierarchy, params: SolveParams, rhs,
@@ -459,13 +535,16 @@ def solve_GMRES(hierarchy: Hierarchy, rhs, params=None, tol: float = 1e-8,
                 precondition: bool = True,
                 engine: str = "device") -> SolveResult:
     """Restarted FGMRES, right-preconditioned by one V-cycle when
-    ``precondition`` (pGMRES). ``engine="device"`` runs the Arnoldi
-    recurrence on the hierarchy's tensors; ``engine="host"`` the
+    ``precondition`` (pGMRES). ``engine="device"`` runs the loop of
+    ``_gmres`` (graph replays on the card, cached on the hierarchy under
+    ``restart`` and ``precondition`` too); ``engine="host"`` the
     reference-style numpy loop."""
-    params = params or SolveParams()
-    engines = {"device": _gmres_device, "host": _gmres_host}
-    if engine not in engines:
+    if engine == "device":
+        return _solve(_gmres, hierarchy, rhs, params, tol, max_iter,
+                      restart=restart, precondition=precondition)
+    if engine != "host":
         raise ValueError(f"unknown GMRES engine {engine!r}")
-    res = engines[engine](hierarchy, params, _prep_rhs(hierarchy, rhs), tol,
-                          max_iter, restart, precondition)
+    params = params or SolveParams()
+    res = _gmres_host(hierarchy, params, _prep_rhs(hierarchy, rhs), tol,
+                      max_iter, restart, precondition)
     return _finalize(hierarchy, res)

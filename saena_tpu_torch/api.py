@@ -64,8 +64,9 @@ class Matrix:
         self._builder.add_duplicates = add
 
     def set_p_order(self, p: int) -> None:
-        """The p-coarsening order, stored until p-coarsening is ported:
-        AMG.set_matrix raises for an order above 1."""
+        """The p-coarsening order, stored as saena_tpu stores it; the setup
+        does not read it (``AMG.set_matrix(p_levels=)`` selects the
+        p-path)."""
         self.p_order = p
 
     def set_prodim(self, d: int) -> None:
@@ -166,12 +167,10 @@ class AMG:
         shard-parallel setup (one shard per 4 cores, at least 2), a
         positive value forces that shard count, 0 runs the serial setup.
         All give the same hierarchy bit for bit. A solve's graphs live on
-        the hierarchy, so a new one starts without them. p-coarsening
-        (``p_levels``, a p-order above 1) is not ported and raises."""
-        if p_levels is not None or A.p_order > 1:
-            raise NotImplementedError(
-                f"p-coarsening (p_order {A.p_order}, p_levels {p_levels}) "
-                "is not ported yet")
+        the hierarchy, so a new one starts without them. ``p_levels`` (host
+        injections from amg/pcoarsen.py) are applied first, then
+        h-coarsening; as in saena_tpu, ``A.p_order`` is stored and not
+        read."""
         if opts is not None:
             self.opts = opts
         csr = A.csr
@@ -185,11 +184,11 @@ class AMG:
             self.hierarchy, self.info = dist_setup(
                 csr, self.opts, dtype=self.dtype, device=self.device,
                 n_shards=max(self.opts.setup_shards, 0),
-                use_dense=A._use_dense)
+                use_dense=A._use_dense, p_levels=p_levels)
         else:
             self.hierarchy, self.info = _hier.setup(
                 csr, self.opts, dtype=self.dtype, device=self.device,
-                use_dense=A._use_dense)
+                use_dense=A._use_dense, p_levels=p_levels)
         self.params = _hier.SolveParams.from_options(self.opts)
         if self.opts.verbose or self.verbose:
             print(self.info.table())

@@ -4,9 +4,9 @@ One dataclass carries every option of the reference's configuration surface
 (`saena::options`, saena.hpp:127-193, plus the public members of
 saena_object.h). Field names and defaults are those of `saena_tpu.config`,
 with its JSON/XML loaders and writers. `setup_shards` is read by
-`AMG.set_matrix` (api.py), `structural_transfers` by amg/hierarchy.py.
-Fields that select machinery the port does not have yet (`rap="device"`,
-`smooth_dtype`, the sharded-path policy) are accepted for parity.
+`AMG.set_matrix` (api.py), `structural_transfers`, `smooth_dtype` and `rap`
+by amg/hierarchy.py. Fields that select machinery the port does not have
+yet (the sharded-path policy) are accepted for parity.
 """
 from __future__ import annotations
 
@@ -102,17 +102,21 @@ class Options:
                                        # use a reduced-precision copy of each
                                        # level's operator (halved smoother
                                        # bandwidth); the outer Krylov always
-                                       # sees the exact operator. DIA levels
-                                       # keep f32 (their Pallas kernel is
-                                       # f32-tiled and already ~6x cheaper
-                                       # than the mid-level smoothers)
+                                       # sees the exact operator. Every
+                                       # format has its twin, sharing A's
+                                       # indices; bf16 values stream
+                                       # through the DIA, strip and strip8
+                                       # kernels with an f32 x and
+                                       # accumulator
     rap: str = "host"                  # Galerkin engine: "host" (native
                                        # Gustavson SpGEMM, the
                                        # mkl_dcsrmultcsr analog) |
-                                       # "device" (block-sparse MXU engine,
-                                       # ops/bspgemm.py — FLOPs on the
-                                       # accelerator, memory ∝ nonzero blocks;
-                                       # the fast_mm re-design)
+                                       # "device" (block-sparse engine,
+                                       # ops/bspgemm.py: host symbolic,
+                                       # batched block products on the
+                                       # hierarchy's device in f64, memory
+                                       # ∝ nonzero blocks; the fast_mm
+                                       # re-design)
     setup_shards: int = -1             # DEFAULT -1 (auto, one shard per 4
                                        # cores, dist_setup.default_shards):
                                        # run the SHARD-PARALLEL setup

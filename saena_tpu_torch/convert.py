@@ -23,7 +23,10 @@ StripMatrix, whose spec also names ``perrow``, ``krb``, ``n_rows_pad``,
 ``n_out``. A structural transfer is ``{"format": "SmoothedP", "Pt": spec,
 "A": "level", ...}`` (``SmoothedR`` with ``"PtT"``) with arrays ``wq`` and
 ``Pt.*`` (``PtT.*``) under its own key; its A is the level's A, stored
-once. The coarse solve is ``coarse.inv`` and
+once. A smoothers' twin (Options.smooth_dtype) is ``"A_smooth": spec`` with
+its arrays under ``L{l}.A_smooth.*`` and its spec naming its ``dtype``
+("float32", "bfloat16", ...), at which its values are loaded; it is absent
+or None on levels without one. The coarse solve is ``coarse.inv`` and
 ``coarse.adense`` (kind "inv"), or ``coarse.dense``, the unit-diagonal-padded
 coarsest operator, which is factored here (kind "lu"). ``inv_sq_diag`` is
 present when ``scaled``.
@@ -51,9 +54,19 @@ _STRIP_META = ("perrow", "krb", "n_rows_pad", "n_cols_pad", "n_out", "pick_pairs
 _STRIP8_META = ("perrow", "mode", "n_cols_pad", "n_out")
 
 
+def _values(arr, dtype, device) -> torch.Tensor:
+    """Host values at ``dtype`` on ``device``; a 2-byte float array (such as
+    bf16 from ml_dtypes) goes through f32, which holds it exactly."""
+    arr = np.asarray(arr)
+    if arr.dtype.itemsize == 2:
+        arr = arr.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device, dtype)
+
+
 def _matrix(arrays, key, spec, dtype, device, level_A=None):
-    val = lambda name: torch.from_numpy(
-        np.ascontiguousarray(arrays[f"{key}.{name}"])).to(device, dtype)
+    if spec.get("dtype"):
+        dtype = getattr(torch, spec["dtype"])
+    val = lambda name: _values(arrays[f"{key}.{name}"], dtype, device)
     idx = lambda name: index_to_device(arrays[f"{key}.{name}"], device)
     lanes = lambda: int8_to_device(arrays[f"{key}.idx"], device)
     fmt = spec["format"]
@@ -98,8 +111,12 @@ def load_hierarchy(arrays: dict, meta: dict, dtype=None, device=None) -> Hierarc
         for k in ("P", "R"):
             mats[k] = None if spec.get(k) is None else _matrix(
                 arrays, f"L{l}.{k}", spec[k], dtype, device, mats["A"])
+        if spec.get("A_smooth") is not None:
+            mats["A_smooth"] = _matrix(arrays, f"L{l}.A_smooth",
+                                       spec["A_smooth"], dtype, device)
         levels.append(Level(A=mats["A"], inv_diag=vec(f"L{l}.inv_diag"),
-                            P=mats["P"], R=mats["R"], n=int(spec["n"]),
+                            P=mats["P"], R=mats["R"],
+                            A_smooth=mats.get("A_smooth"), n=int(spec["n"]),
                             lvl=int(spec["lvl"]), eig_max=spec.get("eig_max")))
     coarse = meta.get("coarse") or {}
     coarse_lu = None

@@ -170,6 +170,17 @@ struct DiaParams {
   int woff[MAX_DIAGS];                  // their shared index less the row (smem)
 };
 
+// The data's 16-byte loads. Normal caching (__ldg), not evict-first
+// (__ldcs): a smoother applies one operator several times in a row, and the
+// 48^3 level 1 (19.7 MB f32, 39.4 MB f64) fits in the card's 50 MB L2, so
+// the next launch finds much of it there. tools/dia_load_hints.py builds the
+// kernel with other hints (-DSAENA_DIA_DATA_LOAD=__ldcs, __ldcg) and times
+// them in turns, back to back and with the data rotated over copies larger
+// than L2.
+#ifndef SAENA_DIA_DATA_LOAD
+#define SAENA_DIA_DATA_LOAD __ldg
+#endif
+
 template <typename T>
 struct Vec16;                           // 16 bytes of T
 template <> struct Vec16<float> { using type = float4; };
@@ -179,7 +190,7 @@ template <> struct Vec16<double> { using type = double2; };
 template <typename TD, typename TC, int V>
 __device__ __forceinline__ void load_data16(const TD* p, TC (&out)[V]) {
   if constexpr (sizeof(TD) == 2) {
-    const uint4 u = __ldcs(reinterpret_cast<const uint4*>(p));
+    const uint4 u = SAENA_DIA_DATA_LOAD(reinterpret_cast<const uint4*>(p));
     const unsigned w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
@@ -191,7 +202,7 @@ __device__ __forceinline__ void load_data16(const TD* p, TC (&out)[V]) {
     }
   } else {
     using VT = typename Vec16<TD>::type;
-    const VT v = __ldcs(reinterpret_cast<const VT*>(p));
+    const VT v = SAENA_DIA_DATA_LOAD(reinterpret_cast<const VT*>(p));
     const TD* e = reinterpret_cast<const TD*>(&v);
 #pragma unroll
     for (int q = 0; q < V; ++q) out[q] = static_cast<TC>(e[q]);

@@ -23,11 +23,18 @@
 //    segment order into y and resets the ticket. No value atomics: the
 //    result is the same on every run. The tables are built on the host
 //    (ops/chunks.py).
+// 4. Values of type V, computed in T: f32 values in f32, f64 in f64, bf16
+//    values in f32 (x, the sums and y stay f32). A lane's four values of a
+//    sublane are 16 bytes at f32 (one cp.async), 32 at f64 (two) and 8 at
+//    bf16 (one 8-byte cp.async); bf16 values become f32 as they are read.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace gather {
 
@@ -49,6 +56,23 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+// The copies of one lane's four consecutive values of type V: 16-byte
+// copies for f32 and f64, one 8-byte copy for bf16. Both addresses aligned
+// to 4 sizeof(V) (16 at f64).
+template <typename V>
+__device__ __forceinline__ void cp_async_vals4(unsigned char* dst, const unsigned char* src) {
+  if constexpr (4 * sizeof(V) >= 16) {
+#pragma unroll
+    for (int o = 0; o < 4 * static_cast<int>(sizeof(V)); o += 16) cp_async16(dst + o, src + o);
+  } else {
+    static_assert(4 * sizeof(V) == 8, "values of 2 bytes");
+    cp_async8(dst, src);
+  }
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -143,6 +167,37 @@ struct Vec4<double> {
     reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
   }
 };
+
+// Four consecutive values of type V in shared memory (4 sizeof(V) bytes,
+// aligned to that or to 16), as the compute type T.
+template <typename V, typename T>
+__device__ __forceinline__ void load_vals4(const V* p, T (&v)[4]) {
+  if constexpr (std::is_same<V, T>::value) {
+    Vec4<T>::load(p, v);
+  } else {
+    static_assert(std::is_same<V, __nv_bfloat16>::value && std::is_same<T, float>::value,
+                  "bf16 values are computed in f32");
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    __nv_bfloat162 a, b;
+    *reinterpret_cast<uint32_t*>(&a) = u.x;
+    *reinterpret_cast<uint32_t*>(&b) = u.y;
+    const float2 fa = __bfloat1622float2(a);
+    const float2 fb = __bfloat1622float2(b);
+    v[0] = fa.x; v[1] = fa.y; v[2] = fb.x; v[3] = fb.y;
+  }
+}
+
+// One value of type V from device memory (read-only path), as T.
+template <typename V, typename T>
+__device__ __forceinline__ T load_val(const V* p) {
+  if constexpr (std::is_same<V, T>::value) {
+    return __ldg(p);
+  } else {
+    static_assert(std::is_same<V, __nv_bfloat16>::value && std::is_same<T, float>::value,
+                  "bf16 values are computed in f32");
+    return __bfloat162float(__ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+  }
+}
 
 // Draws a ticket: returns the old count. acq_rel at the scope of the card:
 // the writes that the lanes of this warp made before a __syncwarp are

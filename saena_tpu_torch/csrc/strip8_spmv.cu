@@ -56,8 +56,12 @@
 //   path (PERF.md, PR 3).
 // The sums follow another order than the plain version's: equal to rounding.
 //
-// Types: f32 values with f32 x/accumulator, f64 throughout. The compiler
-// contracts the multiply-add to FMA. The result is the same on every run.
+// Types (values V, compute T): f32 values with f32 x/accumulator, f64
+// throughout, and bf16 values with f32 x/accumulator/y (the smoothers' twin
+// of an operator, Options.smooth_dtype): a tile then streams 3 bytes a slot
+// instead of 5, and each lane copies its 8 bytes of a sublane's values with
+// one 8-byte cp.async. The compiler contracts the multiply-add to FMA. The
+// result is the same on every run.
 //
 // Launches on the caller's stream, allocates nothing (the wrapper passes the
 // scratch part and the zeroed counters), and returns the CUDA error code so
@@ -69,31 +73,31 @@ namespace {
 
 constexpr int kStages = 2;  // tiles in flight per warp
 
-template <typename T>
+template <typename V>
 struct Stage {
-  static constexpr int kVals = 1024 * sizeof(T);
+  static constexpr int kVals = 1024 * sizeof(V);
   static constexpr int kIdx = 1024;
   static constexpr int kStrips = 32;  // 8 int32 strips
   static constexpr int kBytes = kVals + kIdx + kStrips;
 };
 
-template <typename T>
-using RingOf = gather::Ring<Stage<T>::kBytes, kStages>;
+template <typename V>
+using RingOf = gather::Ring<Stage<V>::kBytes, kStages>;
 
-template <typename T>
+template <typename V, typename T>
 __global__ void __launch_bounds__(gather::kThreads)
-stream_kernel(const int8_t* __restrict__ idx, const T* __restrict__ vals,
+stream_kernel(const int8_t* __restrict__ idx, const V* __restrict__ vals,
               const int32_t* __restrict__ tile_list, const int32_t* __restrict__ unit_strips,
               const int4* __restrict__ heads, const int4* __restrict__ segs,
               const int2* __restrict__ cuts, const T* __restrict__ x, int n_chunks, int perrow,
               T* part, int32_t* __restrict__ counter, T* __restrict__ y) {
-  using S = Stage<T>;
+  using S = Stage<V>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int w = blockIdx.x * gather::kWarps + warp;
   if (w >= n_chunks) return;
-  RingOf<T> ring(smem, warp);
+  RingOf<V> ring(smem, warp);
   const int4 head = __ldg(heads + 2 * w);       // {k0, k1, g0, g1}
   const int k0 = head.x, k1 = head.y;
 
@@ -104,10 +108,9 @@ stream_kernel(const int8_t* __restrict__ idx, const T* __restrict__ vals,
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int slot = i * 128 + 4 * lane;
-      const auto* v = reinterpret_cast<const unsigned char*>(vals + static_cast<int64_t>(t) * 1024 + slot);
-#pragma unroll
-      for (int o = 0; o < 4 * static_cast<int>(sizeof(T)); o += 16)
-        gather::cp_async16(st + slot * sizeof(T) + o, v + o);
+      gather::cp_async_vals4<V>(
+          st + slot * sizeof(V),
+          reinterpret_cast<const unsigned char*>(vals + static_cast<int64_t>(t) * 1024 + slot));
       gather::cp_async4(st + S::kVals + slot, idx + static_cast<int64_t>(t) * 1024 + slot);
     }
     if (lane < 2)
@@ -151,7 +154,7 @@ stream_kernel(const int8_t* __restrict__ idx, const T* __restrict__ vals,
 
   flush(k0);
   for (int k = k0; k < k1; ++k) {
-    RingOf<T>::wait();
+    RingOf<V>::wait();
     const unsigned char* st = ring.stage(k - k0);
     const int4 sa = *reinterpret_cast<const int4*>(st + S::kVals + S::kIdx);
     const int4 sb = *reinterpret_cast<const int4*>(st + S::kVals + S::kIdx + 16);
@@ -161,7 +164,7 @@ stream_kernel(const int8_t* __restrict__ idx, const T* __restrict__ vals,
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       lanes[i] = reinterpret_cast<const uint32_t*>(st + S::kVals)[i * 32 + lane];
-      gather::Vec4<T>::load(reinterpret_cast<const T*>(st) + i * 128 + 4 * lane, v[i]);
+      gather::load_vals4<V, T>(reinterpret_cast<const V*>(st) + i * 128 + 4 * lane, v[i]);
     }
     __syncwarp();
     if (kn < k1) {                             // refill the stage just read
@@ -186,19 +189,19 @@ stream_kernel(const int8_t* __restrict__ idx, const T* __restrict__ vals,
   }
 }
 
-template <typename T>
+template <typename V, typename T>
 cudaError_t launch_stream(const void* idx, const void* vals, const void* tile_list,
                    const void* unit_strips, const void* heads, const void* segs,
                    const void* cuts, const void* x, int n_chunks, int perrow, void* part,
                    void* counter, void* y, cudaStream_t stream) {
   static bool smem_ok = false;
-  constexpr int kSmem = RingOf<T>::kSmem;
-  cudaError_t e = gather::allow_smem(stream_kernel<T>, kSmem, smem_ok);
+  constexpr int kSmem = RingOf<V>::kSmem;
+  cudaError_t e = gather::allow_smem(stream_kernel<V, T>, kSmem, smem_ok);
   if (e != cudaSuccess) return e;
   if (n_chunks > 0) {
     const int blocks = (n_chunks + gather::kWarps - 1) / gather::kWarps;
-    stream_kernel<T><<<blocks, gather::kThreads, kSmem, stream>>>(
-        static_cast<const int8_t*>(idx), static_cast<const T*>(vals),
+    stream_kernel<V, T><<<blocks, gather::kThreads, kSmem, stream>>>(
+        static_cast<const int8_t*>(idx), static_cast<const V*>(vals),
         static_cast<const int32_t*>(tile_list), static_cast<const int32_t*>(unit_strips),
         static_cast<const int4*>(heads), static_cast<const int4*>(segs),
         static_cast<const int2*>(cuts), static_cast<const T*>(x), n_chunks, perrow,
@@ -214,9 +217,9 @@ cudaError_t launch_stream(const void* idx, const void* vals, const void* tile_li
 // (n_split == 1) or its rows to part[rb][split], the last block of the row
 // block to arrive (a ticket in counter[rb], reset to 0) summing the splits
 // in split order.
-template <typename T, bool INTERVAL>
+template <typename V, typename T, bool INTERVAL>
 __global__ void __launch_bounds__(128)
-rows_kernel(const int8_t* __restrict__ idx, const T* __restrict__ vals,
+rows_kernel(const int8_t* __restrict__ idx, const V* __restrict__ vals,
             const int32_t* __restrict__ strips, const int32_t* __restrict__ gather_idx,
             int t_max, int n_tiles, int n_strips, const T* __restrict__ x, int perrow,
             T* __restrict__ part, int32_t* __restrict__ counter, T* __restrict__ y) {
@@ -242,7 +245,7 @@ rows_kernel(const int8_t* __restrict__ idx, const T* __restrict__ vals,
       const int lane = static_cast<int>(__ldg(idx + off));
       const T xv = (s >= 0 && s < n_strips)
                        ? __ldg(x + static_cast<int64_t>(s) * 128 + lane) : T(0);
-      c[i] = __ldg(vals + off) * xv;
+      c[i] = gather::load_val<V, T>(vals + off) * xv;
     }
     acc += ((c[0] + c[4]) + (c[2] + c[6])) + ((c[1] + c[5]) + (c[3] + c[7]));
   }
@@ -272,13 +275,13 @@ rows_kernel(const int8_t* __restrict__ idx, const T* __restrict__ vals,
   if (j == 0) counter[rb] = 0;
 }
 
-template <typename T>
+template <typename V, typename T>
 cudaError_t launch_rows(int interval, const void* idx, const void* vals, const void* strips,
                         const void* gather_idx, int n_rb, int t_max, int n_tiles, int n_strips,
                         const void* x, int perrow, int n_split, void* part, void* counter,
                         void* y, cudaStream_t stream) {
   const int8_t* ix = static_cast<const int8_t*>(idx);
-  const T* v = static_cast<const T*>(vals);
+  const V* v = static_cast<const V*>(vals);
   const int32_t* st = static_cast<const int32_t*>(strips);
   const int32_t* gi = static_cast<const int32_t*>(gather_idx);
   const T* xv = static_cast<const T*>(x);
@@ -288,23 +291,23 @@ cudaError_t launch_rows(int interval, const void* idx, const void* vals, const v
   const dim3 grid(n_rb, n_split);
   if (n_rb > 0) {
     if (interval)
-      rows_kernel<T, true><<<grid, 128, 0, stream>>>(ix, v, st, gi, t_max, n_tiles, n_strips,
+      rows_kernel<V, T, true><<<grid, 128, 0, stream>>>(ix, v, st, gi, t_max, n_tiles, n_strips,
                                                      xv, perrow, pt, ct, out);
     else
-      rows_kernel<T, false><<<grid, 128, 0, stream>>>(ix, v, st, gi, t_max, n_tiles, n_strips,
+      rows_kernel<V, T, false><<<grid, 128, 0, stream>>>(ix, v, st, gi, t_max, n_tiles, n_strips,
                                                       xv, perrow, pt, ct, out);
   }
   return cudaGetLastError();
 }
 
 // Warps of the stream kernel that one SM keeps resident.
-template <typename T>
+template <typename V, typename T>
 int stream_warps_per_sm() {
   static bool smem_ok = false;
-  constexpr int kSmem = RingOf<T>::kSmem;
-  if (gather::allow_smem(stream_kernel<T>, kSmem, smem_ok) != cudaSuccess) return 0;
+  constexpr int kSmem = RingOf<V>::kSmem;
+  if (gather::allow_smem(stream_kernel<V, T>, kSmem, smem_ok) != cudaSuccess) return 0;
   int blocks = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, stream_kernel<T>, gather::kThreads,
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, stream_kernel<V, T>, gather::kThreads,
                                                     kSmem) != cudaSuccess)
     return 0;
   return blocks * gather::kWarps;
@@ -312,7 +315,8 @@ int stream_warps_per_sm() {
 
 }  // namespace
 
-// dtype_code: 0 = f32 values and vectors, 2 = f64. perrow in {1, 2, 4}.
+// dtype_code: 0 = f32 values and vectors, 1 = bf16 values with f32 x, part
+// and y, 2 = f64. perrow in {1, 2, 4}.
 
 // The stream path. tile_list: the real tiles in row-block order, or null
 // when list position k is tile k; unit_strips: 8 strips per list position,
@@ -334,11 +338,14 @@ extern "C" int saena_strip8_stream(int dtype_code, const void* idx, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype_code) {
     case 0:
-      return launch_stream<float>(idx, vals, tile_list, unit_strips, heads, segs, cuts, x,
-                                  n_chunks, perrow, part, counter, y, s);
+      return launch_stream<float, float>(idx, vals, tile_list, unit_strips, heads, segs, cuts,
+                                         x, n_chunks, perrow, part, counter, y, s);
+    case 1:
+      return launch_stream<__nv_bfloat16, float>(idx, vals, tile_list, unit_strips, heads, segs,
+                                                 cuts, x, n_chunks, perrow, part, counter, y, s);
     case 2:
-      return launch_stream<double>(idx, vals, tile_list, unit_strips, heads, segs, cuts, x,
-                                   n_chunks, perrow, part, counter, y, s);
+      return launch_stream<double, double>(idx, vals, tile_list, unit_strips, heads, segs, cuts,
+                                           x, n_chunks, perrow, part, counter, y, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -358,11 +365,17 @@ extern "C" int saena_strip8_rows(int dtype_code, int interval, const void* idx,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype_code) {
     case 0:
-      return launch_rows<float>(interval, idx, vals, strips, gather_idx, n_rb, t_max, n_tiles,
-                                n_strips, x, perrow, n_split, part, counter, y, s);
+      return launch_rows<float, float>(interval, idx, vals, strips, gather_idx, n_rb, t_max,
+                                       n_tiles, n_strips, x, perrow, n_split, part, counter, y,
+                                       s);
+    case 1:
+      return launch_rows<__nv_bfloat16, float>(interval, idx, vals, strips, gather_idx, n_rb,
+                                               t_max, n_tiles, n_strips, x, perrow, n_split, part,
+                                               counter, y, s);
     case 2:
-      return launch_rows<double>(interval, idx, vals, strips, gather_idx, n_rb, t_max, n_tiles,
-                                 n_strips, x, perrow, n_split, part, counter, y, s);
+      return launch_rows<double, double>(interval, idx, vals, strips, gather_idx, n_rb, t_max,
+                                         n_tiles, n_strips, x, perrow, n_split, part, counter, y,
+                                         s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -370,6 +383,10 @@ extern "C" int saena_strip8_rows(int dtype_code, int interval, const void* idx,
 
 // Warps of the stream path one SM keeps resident (0 on an error).
 extern "C" int saena_strip8_stream_warps_per_sm(int dtype_code) {
-  return dtype_code == 0 ? stream_warps_per_sm<float>()
-                         : dtype_code == 2 ? stream_warps_per_sm<double>() : 0;
+  switch (dtype_code) {
+    case 0: return stream_warps_per_sm<float, float>();
+    case 1: return stream_warps_per_sm<__nv_bfloat16, float>();
+    case 2: return stream_warps_per_sm<double, double>();
+    default: return 0;
+  }
 }

@@ -49,9 +49,13 @@
 //   On the 48^3 level-2 A at perrow 2-16 it runs 1.06-1.43x faster than
 //   the rows path (PERF.md, PR 3).
 //
-// Types: f32 values with f32 x/accumulator, f64 throughout. The compiler
-// contracts the multiply-add to FMA, so results differ from the plain
-// PyTorch version by rounding only, in the same way on every run.
+// Types (values V, compute T): f32 values with f32 x/accumulator, f64
+// throughout, and bf16 values with f32 x/accumulator/y (the smoothers' twin
+// of an operator, Options.smooth_dtype): a pair then streams 3 bytes a slot
+// instead of 5, and each lane copies its 8 bytes of a sublane's values with
+// one 8-byte cp.async. The compiler contracts the multiply-add to FMA, so
+// results differ from the plain PyTorch version by rounding only, in the
+// same way on every run.
 //
 // Launches on the caller's stream, allocates nothing (the wrapper passes the
 // scratch part and the zeroed counters), and returns the CUDA error code so
@@ -63,31 +67,31 @@ namespace {
 
 constexpr int kStages = 2;  // pairs in flight per warp
 
-template <typename T>
+template <typename V>
 struct Stage {
-  static constexpr int kVals = 1024 * sizeof(T);
+  static constexpr int kVals = 1024 * sizeof(V);
   static constexpr int kIdx = 1024;
   static constexpr int kStrip = 16;  // strip_of[4 (k / 4) ..][k % 4]
   static constexpr int kBytes = kVals + kIdx + kStrip;
 };
 
-template <typename T>
-using RingOf = gather::Ring<Stage<T>::kBytes, kStages>;
+template <typename V>
+using RingOf = gather::Ring<Stage<V>::kBytes, kStages>;
 
-template <typename T>
+template <typename V, typename T>
 __global__ void __launch_bounds__(gather::kThreads)
-stream_kernel(const int8_t* __restrict__ idx, const T* __restrict__ vals,
+stream_kernel(const int8_t* __restrict__ idx, const V* __restrict__ vals,
              const int32_t* __restrict__ strip_of, const int4* __restrict__ heads,
              const int4* __restrict__ segs, const int2* __restrict__ cuts,
              const T* __restrict__ x, int n_chunks, int perrow, T* part,
              int32_t* __restrict__ counter, T* __restrict__ y) {
-  using S = Stage<T>;
+  using S = Stage<V>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int w = blockIdx.x * gather::kWarps + warp;
   if (w >= n_chunks) return;
-  RingOf<T> ring(smem, warp);
+  RingOf<V> ring(smem, warp);
   const int4 head = __ldg(heads + 2 * w);       // {k0, k1, g0, g1}
   const int k0 = head.x, k1 = head.y;
 
@@ -97,10 +101,9 @@ stream_kernel(const int8_t* __restrict__ idx, const T* __restrict__ vals,
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int slot = i * 128 + 4 * lane;
-      const auto* v = reinterpret_cast<const unsigned char*>(vals + static_cast<int64_t>(k) * 1024 + slot);
-#pragma unroll
-      for (int o = 0; o < 4 * static_cast<int>(sizeof(T)); o += 16)
-        gather::cp_async16(st + slot * sizeof(T) + o, v + o);
+      gather::cp_async_vals4<V>(
+          st + slot * sizeof(V),
+          reinterpret_cast<const unsigned char*>(vals + static_cast<int64_t>(k) * 1024 + slot));
       gather::cp_async4(st + S::kVals + slot, idx + static_cast<int64_t>(k) * 1024 + slot);
     }
     if (lane == 0) gather::cp_async16(st + S::kVals + S::kIdx, strip_of + (k & ~3));
@@ -157,7 +160,7 @@ stream_kernel(const int8_t* __restrict__ idx, const T* __restrict__ vals,
 
   flush(k0);
   for (int k = k0; k < k1; ++k) {
-    RingOf<T>::wait();
+    RingOf<V>::wait();
     const unsigned char* st = ring.stage(k - k0);
     const int strip = reinterpret_cast<const int32_t*>(st + S::kVals + S::kIdx)[k & 3];
     uint32_t lanes[8];
@@ -165,7 +168,7 @@ stream_kernel(const int8_t* __restrict__ idx, const T* __restrict__ vals,
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       lanes[i] = reinterpret_cast<const uint32_t*>(st + S::kVals)[i * 32 + lane];
-      gather::Vec4<T>::load(reinterpret_cast<const T*>(st) + i * 128 + 4 * lane, v[i]);
+      gather::load_vals4<V, T>(reinterpret_cast<const V*>(st) + i * 128 + 4 * lane, v[i]);
     }
     __syncwarp();
     if (k + kStages < k1) issue(k + kStages);  // refill the stage just read
@@ -179,18 +182,18 @@ stream_kernel(const int8_t* __restrict__ idx, const T* __restrict__ vals,
   }
 }
 
-template <typename T>
+template <typename V, typename T>
 cudaError_t launch_stream(const void* idx, const void* vals, const void* strip_of, const void* heads,
                    const void* segs, const void* cuts, const void* x, int n_chunks, int perrow,
                    void* part, void* counter, void* y, cudaStream_t stream) {
   static bool smem_ok = false;
-  constexpr int kSmem = RingOf<T>::kSmem;
-  cudaError_t e = gather::allow_smem(stream_kernel<T>, kSmem, smem_ok);
+  constexpr int kSmem = RingOf<V>::kSmem;
+  cudaError_t e = gather::allow_smem(stream_kernel<V, T>, kSmem, smem_ok);
   if (e != cudaSuccess) return e;
   if (n_chunks > 0) {
     const int blocks = (n_chunks + gather::kWarps - 1) / gather::kWarps;
-    stream_kernel<T><<<blocks, gather::kThreads, kSmem, stream>>>(
-        static_cast<const int8_t*>(idx), static_cast<const T*>(vals),
+    stream_kernel<V, T><<<blocks, gather::kThreads, kSmem, stream>>>(
+        static_cast<const int8_t*>(idx), static_cast<const V*>(vals),
         static_cast<const int32_t*>(strip_of), static_cast<const int4*>(heads),
         static_cast<const int4*>(segs), static_cast<const int2*>(cuts),
         static_cast<const T*>(x), n_chunks, perrow, static_cast<T*>(part),
@@ -207,9 +210,9 @@ cudaError_t launch_stream(const void* idx, const void* vals, const void* strip_o
 // ticket in counter[rb], reset to 0) summing the splits in split order.
 constexpr int kSlots = 8 * 128;
 
-template <typename T>
+template <typename V, typename T>
 __global__ void __launch_bounds__(kSlots)
-rows_kernel(const int8_t* __restrict__ idx, const T* __restrict__ vals,
+rows_kernel(const int8_t* __restrict__ idx, const V* __restrict__ vals,
             const int32_t* __restrict__ strip_of, const int32_t* __restrict__ rb_ptr,
             const T* __restrict__ x, int perrow, T* __restrict__ part,
             int32_t* __restrict__ counter, T* __restrict__ y) {
@@ -230,7 +233,7 @@ rows_kernel(const int8_t* __restrict__ idx, const T* __restrict__ vals,
     const int64_t off = static_cast<int64_t>(p) * kSlots + t;
     const int64_t base = static_cast<int64_t>(__ldg(strip_of + p)) * 128;
     const int lane = static_cast<int>(__ldg(idx + off));
-    acc += __ldg(vals + off) * __ldg(x + base + lane);
+    acc += gather::load_val<V, T>(vals + off) * __ldg(x + base + lane);
   }
   fold[t] = acc;
   __syncthreads();
@@ -264,13 +267,13 @@ rows_kernel(const int8_t* __restrict__ idx, const T* __restrict__ vals,
   if (t == 0) counter[rb] = 0;
 }
 
-template <typename T>
+template <typename V, typename T>
 cudaError_t launch_rows(const void* idx, const void* vals, const void* strip_of,
                         const void* rb_ptr, const void* x, int n_rb, int n_split, int perrow,
                         void* part, void* counter, void* y, cudaStream_t stream) {
   if (n_rb > 0) {
-    rows_kernel<T><<<dim3(n_rb, n_split), kSlots, 0, stream>>>(
-        static_cast<const int8_t*>(idx), static_cast<const T*>(vals),
+    rows_kernel<V, T><<<dim3(n_rb, n_split), kSlots, 0, stream>>>(
+        static_cast<const int8_t*>(idx), static_cast<const V*>(vals),
         static_cast<const int32_t*>(strip_of), static_cast<const int32_t*>(rb_ptr),
         static_cast<const T*>(x), perrow, static_cast<T*>(part),
         static_cast<int32_t*>(counter), static_cast<T*>(y));
@@ -279,13 +282,13 @@ cudaError_t launch_rows(const void* idx, const void* vals, const void* strip_of,
 }
 
 // Warps of the stream kernel that one SM keeps resident.
-template <typename T>
+template <typename V, typename T>
 int stream_warps_per_sm() {
   static bool smem_ok = false;
-  constexpr int kSmem = RingOf<T>::kSmem;
-  if (gather::allow_smem(stream_kernel<T>, kSmem, smem_ok) != cudaSuccess) return 0;
+  constexpr int kSmem = RingOf<V>::kSmem;
+  if (gather::allow_smem(stream_kernel<V, T>, kSmem, smem_ok) != cudaSuccess) return 0;
   int blocks = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, stream_kernel<T>, gather::kThreads,
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, stream_kernel<V, T>, gather::kThreads,
                                                     kSmem) != cudaSuccess)
     return 0;
   return blocks * gather::kWarps;
@@ -293,7 +296,8 @@ int stream_warps_per_sm() {
 
 }  // namespace
 
-// dtype_code: 0 = f32 values and vectors, 2 = f64. perrow in {1, 2, 4, 8, 16}.
+// dtype_code: 0 = f32 values and vectors, 1 = bf16 values with f32 x, part
+// and y, 2 = f64. perrow in {1, 2, 4, 8, 16}.
 
 // The stream path. idx, vals, strip_of, heads, part and y 16-byte aligned;
 // the pair count a multiple of 4 (the strip of pair k is copied with the 16
@@ -313,11 +317,14 @@ extern "C" int saena_strip_stream(int dtype_code, const void* idx, const void* v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype_code) {
     case 0:
-      return launch_stream<float>(idx, vals, strip_of, heads, segs, cuts, x, n_chunks, perrow,
-                                  part, counter, y, s);
+      return launch_stream<float, float>(idx, vals, strip_of, heads, segs, cuts, x, n_chunks,
+                                         perrow, part, counter, y, s);
+    case 1:
+      return launch_stream<__nv_bfloat16, float>(idx, vals, strip_of, heads, segs, cuts, x,
+                                                 n_chunks, perrow, part, counter, y, s);
     case 2:
-      return launch_stream<double>(idx, vals, strip_of, heads, segs, cuts, x, n_chunks, perrow,
-                                   part, counter, y, s);
+      return launch_stream<double, double>(idx, vals, strip_of, heads, segs, cuts, x, n_chunks,
+                                           perrow, part, counter, y, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -336,11 +343,14 @@ extern "C" int saena_strip_rows(int dtype_code, const void* idx, const void* val
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype_code) {
     case 0:
-      return launch_rows<float>(idx, vals, strip_of, rb_ptr, x, n_rb, n_split, perrow, part,
-                                counter, y, s);
+      return launch_rows<float, float>(idx, vals, strip_of, rb_ptr, x, n_rb, n_split, perrow,
+                                       part, counter, y, s);
+    case 1:
+      return launch_rows<__nv_bfloat16, float>(idx, vals, strip_of, rb_ptr, x, n_rb, n_split,
+                                               perrow, part, counter, y, s);
     case 2:
-      return launch_rows<double>(idx, vals, strip_of, rb_ptr, x, n_rb, n_split, perrow, part,
-                                 counter, y, s);
+      return launch_rows<double, double>(idx, vals, strip_of, rb_ptr, x, n_rb, n_split, perrow,
+                                         part, counter, y, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -348,6 +358,10 @@ extern "C" int saena_strip_rows(int dtype_code, const void* idx, const void* val
 
 // Warps of the stream path one SM keeps resident (0 on an error).
 extern "C" int saena_strip_stream_warps_per_sm(int dtype_code) {
-  return dtype_code == 0 ? stream_warps_per_sm<float>()
-                         : dtype_code == 2 ? stream_warps_per_sm<double>() : 0;
+  switch (dtype_code) {
+    case 0: return stream_warps_per_sm<float, float>();
+    case 1: return stream_warps_per_sm<__nv_bfloat16, float>();
+    case 2: return stream_warps_per_sm<double, double>();
+    default: return 0;
+  }
 }

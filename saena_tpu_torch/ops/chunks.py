@@ -55,9 +55,10 @@ def sm_count(device) -> int:
 
 def warps_per_sm(kernel: str, dtype, device) -> int:
     """Warps of the stream path of csrc/<kernel>.cu that the card holding
-    ``device`` keeps resident per SM at ``dtype`` (f32 or f64), as the
-    CUDA occupancy calculator gives them; WARPS_PER_SM off the card."""
-    codes = {torch.float32: 0, torch.float64: 2}
+    ``device`` keeps resident per SM at values ``dtype`` (f32, bf16 or
+    f64), as the CUDA occupancy calculator gives them; WARPS_PER_SM off the
+    card."""
+    codes = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
     if torch.device(device).type != "cuda" or dtype not in codes:
         return WARPS_PER_SM
     fn = getattr(cuda_build.load(kernel), f"saena_{kernel[:-len('_spmv')]}_stream_warps_per_sm")

@@ -30,7 +30,8 @@ pure function of (offsets, n_pad, dtype, SM count):
 `DiaMatrix` keeps its plan, so a launch plans nothing; a test forces a
 configuration by passing ``plan=dia_plan(..., config=..., groups=...)``.
 `launches` counts kernel launches, `rows_launches` those of the row kernel,
-`shape_launches` all of them by (n_pad, ndiag, variant).
+`bf16_launches` those with bf16 data, `shape_launches` all of them by
+(n_pad, ndiag, variant).
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ from saena_tpu_torch.ops.chunks import H100_SMS, sm_count
 LANES = 128
 launches = 0          # kernel launches made by dia_spmv
 rows_launches = 0     # of which the row kernel's
+bf16_launches = 0     # of which with bf16 data
 shape_launches = {}   # launches by (n_pad, ndiag, variant), variant as in _variant
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
@@ -355,7 +357,7 @@ def _variant(rhs, dinv, add_x) -> str:
 
 
 def _dia_cuda(data, x, offsets, rhs, dinv, c, add_x, x_row0, offsets_dev, plan):
-    global launches, rows_launches
+    global launches, rows_launches, bf16_launches
     dev = data.device
     if data.dtype not in _DTYPE_CODE:
         raise TypeError(f"dia_spmv: data dtype {data.dtype} not supported "
@@ -418,6 +420,7 @@ def _dia_cuda(data, x, offsets, rhs, dinv, c, add_x, x_row0, offsets_dev, plan):
         raise RuntimeError(f"dia_spmv: kernel launch failed with CUDA error {rc}")
     launches += 1
     rows_launches += plan.config == "rows"
+    bf16_launches += data.dtype == torch.bfloat16
     key = (n_pad, ndiag, _variant(rhs, dinv, add_x))
     shape_launches[key] = shape_launches.get(key, 0) + 1
     return y

@@ -27,6 +27,13 @@ target and its accelerator branch for a CUDA target (or when the caller
 passes ``prefer_bsr=True``): wide-stencil DIA, then the gather picker,
 which ranks strip, strip8 and BSR by estimated matvec time. Cost constants
 are H100 measurements from ``chip_smoke.py`` phase 4; see PERF.md.
+
+Every converter takes ``smooth_dtype``: it then returns (M, M_smooth), the
+twin holding the same host values at that dtype (Options.smooth_dtype)
+beside M's own index arrays and layout, so the format pick is M's. DIA,
+strip and strip8 twins with bf16 values stream them through their kernels
+with an f32 x and accumulator; ELL, dense and BSR twins compute at the
+twin's dtype, as the JAX package's do.
 """
 from __future__ import annotations
 
@@ -67,6 +74,16 @@ def to_device(arr, dtype: torch.dtype, device, timer=None) -> torch.Tensor:
     if timer is not None:
         timer.add_upload(time.perf_counter() - t0, out.numel() * out.element_size())
     return out
+
+
+def scatter_value_dtype(dtype, smooth_dtype=None):
+    """numpy dtype of a converter's value-scatter buffer: the target dtype
+    itself when it is a numpy float and no twin is asked for (scattering
+    f64 values into it rounds each as a cast would, without an f64 copy),
+    else f64, from which M and its twin are both cast."""
+    if smooth_dtype is None:
+        return _NP_FLOAT.get(dtype, np.float64)
+    return np.float64
 
 
 def index_to_device(arr, device) -> torch.Tensor:
@@ -221,10 +238,11 @@ def _ranges(counts: np.ndarray) -> np.ndarray:
 
 
 def ell_from_csr(A: sp.spmatrix, dtype, device, width: Optional[int] = None,
-                 width_quantile: float = 1.0, timer=None) -> EllMatrix:
+                 width_quantile: float = 1.0, timer=None, smooth_dtype=None):
     """Convert CSR to hybrid slot-major ELL. width defaults to the max row
     nnz; with width_quantile < 1 it is cut at that quantile and the tail
-    spills to COO, unless that would spill more than 10% of nnz."""
+    spills to COO, unless that would spill more than 10% of nnz. With
+    ``smooth_dtype``: (M, twin)."""
     A = A.tocsr()
     if not A.has_sorted_indices:
         A = A.copy()          # don't reorder the caller's entry order
@@ -260,15 +278,22 @@ def ell_from_csr(A: sp.spmatrix, dtype, device, width: Optional[int] = None,
     s_rows = np.repeat(np.arange(n), over)
     s_src = (A.indptr[:-1] + take).repeat(over) + _ranges(over)
 
-    return EllMatrix(
+    s_vals = A.data[s_src]
+    M = EllMatrix(
         cols=index_to_device(cols, device),
         vals=to_device(vals, dtype, device, timer),
         spill_rows=index_to_device(s_rows, device),
         spill_cols=index_to_device(A.indices[s_src], device),
-        spill_vals=to_device(A.data[s_src], dtype, device, timer),
+        spill_vals=to_device(s_vals, dtype, device, timer),
         shape=(n, m),
         nnz=int(A.nnz),
     )
+    if smooth_dtype is None:
+        return M
+    return M, EllMatrix(M.cols, to_device(vals, smooth_dtype, device, timer),
+                        M.spill_rows, M.spill_cols,
+                        to_device(s_vals, smooth_dtype, device, timer),
+                        M.shape, M.nnz)
 
 
 def dia_offsets_of(A: sp.spmatrix) -> np.ndarray:
@@ -282,7 +307,10 @@ def dia_offsets_of(A: sp.spmatrix) -> np.ndarray:
     return np.flatnonzero(present) - (n - 1)
 
 
-def dia_from_csr(A: sp.spmatrix, dtype, device, timer=None) -> DiaMatrix:
+def dia_from_csr(A: sp.spmatrix, dtype, device, timer=None, smooth_dtype=None):
+    """Convert to DIA; with ``smooth_dtype``: (M, twin), the twin's data at
+    that dtype on the same offsets (bf16 data streams through the DIA
+    kernel with an f32 x and accumulator)."""
     coo = A.tocoo()
     n, m = A.shape
     if n != m:
@@ -291,12 +319,16 @@ def dia_from_csr(A: sp.spmatrix, dtype, device, timer=None) -> DiaMatrix:
     uniq = np.unique(offs)
     data = np.zeros((uniq.size, pad_to(n)), dtype=np.float64)
     data[np.searchsorted(uniq, offs), coo.row] = coo.data  # canonical CSR: no duplicates
-    return DiaMatrix(data=to_device(data, dtype, device, timer),
-                     offsets=uniq, shape=(n, m), nnz=int(A.nnz))
+    M = DiaMatrix(data=to_device(data, dtype, device, timer),
+                  offsets=uniq, shape=(n, m), nnz=int(A.nnz))
+    if smooth_dtype is None:
+        return M
+    return M, DiaMatrix(data=to_device(data, smooth_dtype, device, timer),
+                        offsets=uniq, shape=(n, m), nnz=int(A.nnz))
 
 
 def dense_from_csr(A: sp.spmatrix, dtype, device, unit_diag_pad: bool = False,
-                   timer=None) -> DenseMatrix:
+                   timer=None, smooth_dtype=None):
     n, m = A.shape
     n_pad, m_pad = pad_to(n), pad_to(m)
     d = np.zeros((n_pad, m_pad), dtype=np.float64)
@@ -304,12 +336,17 @@ def dense_from_csr(A: sp.spmatrix, dtype, device, unit_diag_pad: bool = False,
     if unit_diag_pad and n_pad == m_pad:
         idx = np.arange(n, n_pad)
         d[idx, idx] = 1.0  # keep the padded system nonsingular for LU
-    return DenseMatrix(data=to_device(d, dtype, device, timer), shape=(n, m),
-                       nnz=int(A.nnz))
+    M = DenseMatrix(data=to_device(d, dtype, device, timer), shape=(n, m),
+                    nnz=int(A.nnz))
+    if smooth_dtype is None:
+        return M
+    return M, DenseMatrix(data=to_device(d, smooth_dtype, device, timer),
+                          shape=(n, m), nnz=int(A.nnz))
 
 
-def bsr_from_csr(A: sp.spmatrix, dtype, device, timer=None) -> BsrMatrix:
-    """Convert CSR to (8, 128)-block BSR (block-ELL across block rows)."""
+def bsr_from_csr(A: sp.spmatrix, dtype, device, timer=None, smooth_dtype=None):
+    """Convert CSR to (8, 128)-block BSR (block-ELL across block rows); with
+    ``smooth_dtype``: (M, twin)."""
     A = A.tocsr()
     n, m = A.shape
     n_br = pad_to(n) // 8
@@ -323,13 +360,18 @@ def bsr_from_csr(A: sp.spmatrix, dtype, device, timer=None) -> BsrMatrix:
     W = max(1, int(counts.max())) if counts.size else 1
     # slot of each unique block within its block row (uniq is sorted)
     slot = np.arange(uniq.size) - (np.cumsum(counts) - counts)[u_br]
-    blocks = np.zeros((n_br, W, 8, 128), dtype=_NP_FLOAT.get(dtype, np.float64))
+    blocks = np.zeros((n_br, W, 8, 128),
+                      dtype=scatter_value_dtype(dtype, smooth_dtype))
     bcols = np.zeros((n_br, W), dtype=np.int32)
     bcols[u_br, slot] = u_bc
     blocks[u_br[inv], slot[inv], coo.row % 8, coo.col % 128] = coo.data
-    return BsrMatrix(blocks=to_device(blocks, dtype, device, timer),
-                     bcols=index_to_device(bcols, device), shape=(n, m),
-                     nnz=int(A.nnz))
+    M = BsrMatrix(blocks=to_device(blocks, dtype, device, timer),
+                  bcols=index_to_device(bcols, device), shape=(n, m),
+                  nnz=int(A.nnz))
+    if smooth_dtype is None:
+        return M
+    return M, BsrMatrix(blocks=to_device(blocks, smooth_dtype, device, timer),
+                        bcols=M.bcols, shape=(n, m), nnz=int(A.nnz))
 
 
 # H100 cost constants, measured by chip_smoke.py phase 4 on NVIDIA H100 80GB
@@ -360,6 +402,7 @@ def device_matrix_from_csr(
     dia_fill_thre: float = 0.3,
     prefer_bsr: Optional[bool] = None,
     timer=None,
+    smooth_dtype=None,
 ):
     """Pick the device format of a matrix: the reference's dense switch
     (density > dense_thre and size <= dense_sz_thre,
@@ -369,26 +412,28 @@ def device_matrix_from_csr(
     wide-stencil DIA up to 256 diagonals at the same fill, then the fastest
     gather format by estimated time (strip, strip8, BSR, within the byte
     caps GATHER_MAX_BYTES and GATHER_MAX_BYTES_PER_NNZ). Everything else is
-    ELL cut at the 0.98 row-nnz quantile."""
+    ELL cut at the 0.98 row-nnz quantile. With ``smooth_dtype`` it returns
+    (M, M_smooth): the twin of the format picked for M, at that dtype."""
     A = A.tocsr()
     device = torch.device(device)
     n, m = A.shape
     density = A.nnz / max(1, n * m)
     if prefer_bsr is None:
         prefer_bsr = accelerator_branch(device)
+    kw = dict(timer=timer, smooth_dtype=smooth_dtype)
     if switch_to_dense and density > dense_thre and max(n, m) <= dense_sz_thre:
-        return dense_from_csr(A, dtype, device, timer=timer)
+        return dense_from_csr(A, dtype, device, **kw)
     if n == m and A.nnz > 0:
         offs = dia_offsets_of(A)
         fill = A.nnz / (offs.size * n)
         if fill >= dia_fill_thre and (
                 offs.size <= max_dia_diags or (prefer_bsr and offs.size <= 256)):
-            return dia_from_csr(A, dtype, device, timer=timer)
+            return dia_from_csr(A, dtype, device, **kw)
     if prefer_bsr and A.nnz > 0:
         builder = pick_gather_format(A, dtype)
         if builder is not None:
-            return builder(A, dtype, device, timer=timer)
-    return ell_from_csr(A, dtype, device, width_quantile=0.98, timer=timer)
+            return builder(A, dtype, device, **kw)
+    return ell_from_csr(A, dtype, device, width_quantile=0.98, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -420,8 +465,9 @@ def gather_time_estimate_quick(A: sp.spmatrix, dtype=torch.float32) -> float:
 
 
 def pick_gather_format(A: sp.spmatrix, dtype=torch.float32):
-    """The builder (fn(A, dtype, device, timer=None)) of the gather format
-    with the least estimated matvec time, or None when none fits the caps."""
+    """The builder (fn(A, dtype, device, timer=None, smooth_dtype=None)) of
+    the gather format with the least estimated matvec time, or None when
+    none fits the caps."""
     return _pick_gather(A, dtype)[1]
 
 

@@ -37,7 +37,9 @@ the port's planner builds; the kernel then skips the tile_list lookup.
 on the card, on the layout's path, and runs `strip8_spmv_plain` for
 tensors on the CPU; it never falls back from one to the other. `launches`
 counts kernel launches, `stream_launches` those of the stream path,
-`interval_launches` those of interval-mode layouts.
+`interval_launches` those of interval-mode layouts, `bf16_launches` those
+with bf16 values (an f32 x and y: the smoothers' twin of an operator,
+Options.smooth_dtype).
 
 The cost constants (``STRIP8_NS_PER_TILE``) are H100 measurements from
 ``chip_smoke.py`` phase 4; see PERF.md.
@@ -58,10 +60,10 @@ from saena_tpu_torch.ops import chunks
 from saena_tpu_torch.ops.chunks import ChunkTables
 from saena_tpu_torch.ops.dia_spmv import compute_dtype
 from saena_tpu_torch.ops.formats import (
-    _NP_FLOAT,
     index_to_device,
     int8_to_device,
     pad_to,
+    scatter_value_dtype,
     to_device,
 )
 
@@ -71,8 +73,11 @@ MODES = ("general", "interval")
 launches = 0          # kernel launches made by strip8_spmv, both paths
 stream_launches = 0   # of which the stream path's
 interval_launches = 0  # of which on interval-mode layouts
+bf16_launches = 0      # of which with bf16 values
 
-_DTYPE_CODE = {torch.float32: 0, torch.float64: 2}
+# values dtype -> the kernel's code: f32 values with an f32 x and
+# accumulator, bf16 values with an f32 x and accumulator, f64 throughout
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 # The two paths of the kernel (csrc/strip8_spmv.cu). The rows path gives a
 # block to each row block, or to each SPLIT_TILES entries of its gather_idx
 # row (at most MAX_SPLIT blocks a row block). The stream path gives warps
@@ -143,6 +148,13 @@ class Strip8Matrix:
         if t_max > SPLIT_TILES and tiles.size <= chunks.resident_warps(
                 "strip8_spmv", vals.dtype, vals.device):
             self.rechunk()
+
+    def with_vals(self, vals) -> "Strip8Matrix":
+        """The same layout (index arrays shared) with other values, such as
+        a twin at another dtype; its kernel path is chosen for its dtype."""
+        return Strip8Matrix(self.idx, vals, self.strips, self.gather_idx,
+                            self.shape, self.nnz, self.perrow, self.mode,
+                            self.n_cols_pad, self.n_out)
 
     def rechunk(self, chunk_min: int = STRIP8_CHUNK_MIN,
                 whole_max: int = STRIP8_WHOLE_MAX):
@@ -221,11 +233,11 @@ def strip8_spmv(A: Strip8Matrix, x: torch.Tensor) -> torch.Tensor:
 
 
 def _strip8_cuda(A: Strip8Matrix, x):
-    global launches, stream_launches, interval_launches
+    global launches, stream_launches, interval_launches, bf16_launches
     dev = A.vals.device
     if A.dtype not in _DTYPE_CODE:
         raise TypeError(f"strip8_spmv: values dtype {A.dtype} not supported "
-                        "(float32, float64)")
+                        "(float32, bfloat16, float64)")
     n_tiles = A.idx.shape[0]
     n_strips_rec = n_tiles * 8 if A.mode == "general" else n_tiles
     if (A.idx.shape != (n_tiles, 8, 128) or A.idx.dtype != torch.int8
@@ -290,6 +302,7 @@ def _strip8_cuda(A: Strip8Matrix, x):
     launches += 1
     stream_launches += C is not None
     interval_launches += A.mode == "interval"
+    bf16_launches += A.dtype == torch.bfloat16
     return y
 
 
@@ -446,9 +459,11 @@ def _padded_tiles(n_tiles: int) -> int:
 
 
 def strip8_from_csr(A: sp.spmatrix, dtype, device, perrow=None,
-                    mode="general", timer=None) -> Strip8Matrix:
+                    mode="general", timer=None, smooth_dtype=None):
     """Host conversion CSR -> multi-strip tiles: the planner picks perrow
-    and mode, unless ``perrow`` is forced, which plans ``mode`` at it."""
+    and mode, unless ``perrow`` is forced, which plans ``mode`` at it. With
+    ``smooth_dtype``: (M, twin), the twin's values at that dtype beside
+    M's index arrays."""
     A = A.tocsr()
     n, m = A.shape
     if perrow is None:
@@ -469,7 +484,7 @@ def strip8_from_csr(A: sp.spmatrix, dtype, device, perrow=None,
     n_tiles_pad = _padded_tiles(n_tiles)
 
     idx = np.zeros((n_tiles_pad, 8, 128), dtype=np.int8)
-    vals = np.zeros((n_tiles_pad, 8, 128), dtype=_NP_FLOAT.get(dtype, np.float64))
+    vals = np.zeros((n_tiles_pad, 8, 128), dtype=scatter_value_dtype(dtype, smooth_dtype))
     strips = np.zeros(n_tiles_pad if mode == "interval" else n_tiles_pad * 8,
                       dtype=np.int32)
     if n_tiles:
@@ -486,13 +501,16 @@ def strip8_from_csr(A: sp.spmatrix, dtype, device, perrow=None,
         mask = rb_tiles > t
         gather_idx[mask, t] = off[mask] + t
 
-    return Strip8Matrix(
+    M = Strip8Matrix(
         idx=int8_to_device(idx, device),
         vals=to_device(vals, dtype, device, timer),
         strips=index_to_device(strips, device),
         gather_idx=index_to_device(gather_idx, device),
         shape=(n, m), nnz=int(A.nnz), perrow=perrow, mode=mode,
         n_cols_pad=n_strips * 128, n_out=pad_to(n))
+    if smooth_dtype is None:
+        return M
+    return M, M.with_vals(to_device(vals, smooth_dtype, device, timer))
 
 
 def strip8_bytes_estimate(A: sp.spmatrix, dtype=torch.float32) -> int:

@@ -27,7 +27,9 @@ launches go to one stream.
 `strip_spmv` launches the CUDA kernel (csrc/strip_spmv.cu) for tensors on
 the card, on the layout's path, and runs `strip_spmv_plain` for tensors on
 the CPU; it never falls back from one to the other. `launches` counts
-kernel launches, `stream_launches` those of the stream path.
+kernel launches, `stream_launches` those of the stream path,
+`bf16_launches` those with bf16 values (an f32 x and y: the smoothers'
+twin of an operator, Options.smooth_dtype).
 
 Cost constants (``STRIP_NS_BY_PERROW``, ``STRIP_LAUNCH_S``) are H100
 measurements from ``chip_smoke.py`` phase 4; see PERF.md.
@@ -48,10 +50,10 @@ from saena_tpu_torch.ops import chunks
 from saena_tpu_torch.ops.chunks import ChunkTables
 from saena_tpu_torch.ops.dia_spmv import compute_dtype
 from saena_tpu_torch.ops.formats import (
-    _NP_FLOAT,
     index_to_device,
     int8_to_device,
     pad_to,
+    scatter_value_dtype,
     to_device,
 )
 
@@ -60,8 +62,11 @@ _PERROW_CANDIDATES = (1, 2, 4, 8, 16)
 _KRB_CANDIDATES = (1, 2, 4, 8, 16, 32)
 launches = 0               # kernel launches made by strip_spmv, both paths
 stream_launches = 0        # of which the stream path's
+bf16_launches = 0          # of which with bf16 values
 
-_DTYPE_CODE = {torch.float32: 0, torch.float64: 2}
+# values dtype -> the kernel's code: f32 values with an f32 x and
+# accumulator, bf16 values with an f32 x and accumulator, f64 throughout
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 # The two paths of the kernel (csrc/strip_spmv.cu). The rows path gives a
 # block of 1024 threads to each row block, or to each SPLIT_PAIRS pairs of
 # one (at most MAX_SPLIT blocks a row block). The stream path gives warps
@@ -131,6 +136,14 @@ class StripMatrix:
         if self.perrow > 1 and idx.shape[0] > chunks.resident_warps(
                 "strip_spmv", vals.dtype, vals.device):
             self.rechunk()
+
+    def with_vals(self, vals) -> "StripMatrix":
+        """The same layout (index arrays shared) with other values, such as
+        a twin at another dtype; its kernel path is chosen for its dtype."""
+        return StripMatrix(self.idx, vals, self.strip_of, self.rb_local,
+                           self.sb_of, self.shape, self.nnz, self.perrow,
+                           self.krb, self.n_rows_pad, self.n_cols_pad,
+                           self.n_out, self.pick_pairs)
 
     def rechunk(self, chunk_min: int = STRIP_CHUNK_MIN,
                 whole_max: int = STRIP_WHOLE_MAX):
@@ -208,11 +221,11 @@ def strip_spmv(A: StripMatrix, x: torch.Tensor) -> torch.Tensor:
 
 
 def _strip_cuda(A: StripMatrix, x):
-    global launches, stream_launches
+    global launches, stream_launches, bf16_launches
     dev = A.vals.device
     if A.dtype not in _DTYPE_CODE:
         raise TypeError(f"strip_spmv: values dtype {A.dtype} not supported "
-                        "(float32, float64)")
+                        "(float32, bfloat16, float64)")
     n_pairs = A.idx.shape[0]
     shapes_ok = (A.idx.shape == (n_pairs, 8, 128) and A.idx.dtype == torch.int8
                  and A.vals.shape == A.idx.shape
@@ -271,6 +284,7 @@ def _strip_cuda(A: StripMatrix, x):
         raise RuntimeError(f"strip_spmv: kernel launch failed with CUDA error {rc}")
     launches += 1
     stream_launches += C is not None
+    bf16_launches += A.dtype == torch.bfloat16
     return y
 
 
@@ -426,9 +440,10 @@ def _set_memo(A, key, res) -> None:
 
 
 def strip_from_csr(A: sp.spmatrix, dtype, device, perrow=None,
-                   timer=None) -> StripMatrix:
+                   timer=None, smooth_dtype=None):
     """Host conversion CSR -> strip pairs (the planner picks perrow and krb
-    unless ``perrow`` is forced)."""
+    unless ``perrow`` is forced). With ``smooth_dtype``: (M, twin), the
+    twin's values at that dtype beside M's index arrays."""
     t0 = time.perf_counter()
     A = A.tocsr()
     n, m = A.shape
@@ -462,7 +477,7 @@ def strip_from_csr(A: sp.spmatrix, dtype, device, perrow=None,
     pos = offsets[pair_sb] + within
 
     idx = np.zeros((n_pairs, 8, 128), dtype=np.int8)
-    vals = np.zeros((n_pairs, 8, 128), dtype=_NP_FLOAT.get(dtype, np.float64))
+    vals = np.zeros((n_pairs, 8, 128), dtype=scatter_value_dtype(dtype, smooth_dtype))
     strip_of = np.zeros(n_pairs, dtype=np.int32)
     rb_local = np.zeros(n_pairs, dtype=np.int32)
     if pair_rb.size:
@@ -477,7 +492,7 @@ def strip_from_csr(A: sp.spmatrix, dtype, device, perrow=None,
     sb_of = np.repeat(np.arange(n_sb), padded // GROUP).astype(np.int32)
     if timer is not None:
         timer.add("plan_strip", time.perf_counter() - t0)
-    return StripMatrix(
+    M = StripMatrix(
         idx=int8_to_device(idx, device),
         vals=to_device(vals, dtype, device, timer),
         strip_of=index_to_device(strip_of, device),
@@ -486,6 +501,9 @@ def strip_from_csr(A: sp.spmatrix, dtype, device, perrow=None,
         shape=(n, m), nnz=int(A.nnz), perrow=pr, krb=krb,
         n_rows_pad=n_rows_pad, n_cols_pad=n_strips * 128, n_out=pad_to(n),
         pick_pairs=pln["padded_pairs"])
+    if smooth_dtype is None:
+        return M
+    return M, M.with_vals(to_device(vals, smooth_dtype, device, timer))
 
 
 def strip_bytes_estimate(A: sp.spmatrix, dtype=torch.float32) -> int:

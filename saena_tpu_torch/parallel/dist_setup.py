@@ -651,6 +651,7 @@ def dist_setup(
     max_workers: Optional[int] = None,
     tail_rows: int = 512,
     use_dense: bool = False,
+    p_levels: Optional[list] = None,
     wire_codec: str = "gr",
     dense_serial_thre: float = 0.01,
 ) -> tuple[Hierarchy, SetupInfo]:
@@ -658,7 +659,10 @@ def dist_setup(
     bitwise-identical result, its device levels on ``device`` (the card
     unless named) at ``dtype``. ``info.comm`` carries the CommMeter. Levels
     smaller than n_shards * tail_rows run the serial coarsen (the shrink
-    analog: the reference gathers small coarse levels the same way).
+    analog: the reference gathers small coarse levels the same way), with
+    ``Options.rap``'s Galerkin engine; the sharded levels take the
+    distributed host product. ``p_levels`` pass through to the serial
+    setup, which applies them before the h-coarsening.
 
     ``wire_codec``: "gr" (default) Golomb-Rice-compresses every remote
     SpGEMM window as the reference's compressed matmat ring does
@@ -679,15 +683,16 @@ def dist_setup(
         n_shards = default_shards()
     meter = CommMeter()
     with ThreadPoolExecutor(max_workers=max_workers or n_shards) as pool:
-        def fn(Acur, lvl, o, timer):
+        def fn(Acur, lvl, o, timer, dev):
             n = Acur.shape[0]
             if n < n_shards * tail_rows or \
                     Acur.nnz >= dense_serial_thre * n * n:
-                return coarsen_csr(Acur, lvl, o, timer)
+                return coarsen_csr(Acur, lvl, o, timer, dev)
             return coarsen_dist(Acur, lvl, o, n_shards, pool, meter, timer,
                                 wire_codec)
         hier, info = serial_setup(A, opts, dtype=dtype, device=device,
-                                  use_dense=use_dense, coarsen_fn=fn)
+                                  use_dense=use_dense, p_levels=p_levels,
+                                  coarsen_fn=fn)
     info.comm = meter
     info.n_shards = n_shards   # per-shard stats in info.table()
     return hier, info

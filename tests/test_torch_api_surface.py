@@ -2,7 +2,7 @@
 inputs (f64, CPU): Vector, the matrix readers and writers, the Nektar++
 session reader, the scipy oracles, the Options loaders, the Matrix and AMG
 methods (assemble's argument order, duplicates, file I/O, the setters,
-matmat, destroy, p-coarsening refused) and the generators and COO helpers
+matmat, destroy, p_order stored and p_levels) and the generators and COO helpers
 the port gained. Host arrays must agree exactly: these are the same numpy
 and scipy code in both packages. Solves through a Vector rhs agree with
 an array rhs bit for bit.
@@ -134,18 +134,36 @@ def test_matrix_add_duplicates_matches_saena_tpu(add):
     _same_csr(*out)
 
 
-def test_p_order_is_refused_not_ignored():
-    M = T.Matrix()
-    M.set_csr(generators.laplacian2D(8, 8))
-    M.assemble(**F64)
-    M.set_p_order(2)
-    M.set_prodim(2)
-    assert (M.p_order, M.prodim) == (2, 2)
-    with pytest.raises(NotImplementedError):
-        T.AMG(**F64).set_matrix(M)
-    M.set_p_order(1)
-    with pytest.raises(NotImplementedError):
-        T.AMG(**F64).set_matrix(M, p_levels=[2, 1])
+def test_p_order_is_stored_and_p_levels_take_the_p_path():
+    """set_p_order(2) is stored and not read, as in saena_tpu: set_matrix
+    runs the h-setup and gives saena_tpu's hierarchy. p_levels take the
+    p-path in both: a modal-unit operator (kron of a 2-D Laplacian and a
+    3 x 3 SPD block, order 2) coarsens p, then h, to the same levels."""
+    from saena_tpu.amg.pcoarsen import modal_block_plevels as jplevels
+
+    from saena_tpu_torch.amg.pcoarsen import modal_block_plevels
+
+    rng = np.random.default_rng(3)
+    E = rng.standard_normal((3, 6))
+    modal = sp.kron(generators.laplacian2D(10, 10), E @ E.T / 3 + 2 * np.eye(3))
+    cases = ((generators.laplacian2D(24, 24), None, None),
+             (modal, modal_block_plevels(100, 3), jplevels(100, 3)))
+    for A, tp, jp in cases:
+        infos = []
+        for pkg, kw, pl in ((T, F64, tp), (J, {}, jp)):
+            M = pkg.Matrix()
+            M.set_csr(A)
+            M.assemble(**kw)
+            M.set_p_order(2)
+            M.set_prodim(2)
+            assert (M.p_order, M.prodim) == (2, 2)
+            amg = pkg.AMG(**kw).set_matrix(M, pkg.Options(), p_levels=pl)
+            infos.append(amg.info)
+        ti, ji = infos
+        assert ti.sizes == ji.sizes and ti.coarsen_kinds == ji.coarsen_kinds
+        assert ti.coarsen_kinds[0] == ("p" if tp else "h")
+        for a, b in zip(ti.csr_levels, ji.csr_levels):
+            _same_csr(a, b)
 
 
 def test_setters_match_saena_tpu():

@@ -19,7 +19,8 @@ with it by an update.
 Card (marker ``cuda``, skipped without one): each loop captured and
 replayed gives the uncaptured loop's iterations, history and u bit for
 bit, with the same kernel launches; the LU coarse path (n_pad > 2048) and
-the coarsest CG capture; a capture that syncs with the host raises.
+the coarsest CG capture; a capture that syncs with the host raises; a
+capture beside graphs left in reference cycles succeeds.
 """
 import dataclasses
 import types
@@ -248,6 +249,33 @@ def test_cuda_graph_replay_matches_uncaptured_loop(case, loop):
     assert lg == le
     loop_ = next(iter(s.hierarchy.graphs.values()))
     assert loop_.graphs is not None and loop_.capture_ms > 0
+
+
+@pytest.mark.cuda
+def test_cuda_capture_survives_garbage_graphs():
+    """A graph left in a reference cycle (as a dropped hierarchy's loops
+    are) must not be freed by the collector inside another capture, where
+    its reset would invalidate that capture."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x = torch.zeros(8, device="cuda")
+
+    def drop_a_graph_in_a_cycle():
+        cycle = [graphs.Graph(lambda: x.add_(1), "a graph to drop")]
+        cycle.append(cycle)
+
+    def body():
+        junk = [[] for _ in range(200_000)]     # enough for the collector
+        x.mul_(2)
+        return junk
+
+    for _ in range(3):
+        drop_a_graph_in_a_cycle()
+        g = graphs.Graph(body, "a capture beside garbage graphs")
+    x.fill_(1.0)
+    g()
+    torch.cuda.synchronize()
+    assert torch.equal(x, torch.full_like(x, 2.0))
 
 
 @pytest.mark.cuda

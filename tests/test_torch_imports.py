@@ -30,7 +30,8 @@ def test_import_loads_no_jax_and_no_saena_tpu():
             "saena_tpu_torch.api, saena_tpu_torch.amg.graphs, "
             "saena_tpu_torch.profiling, saena_tpu_torch.vector, "
             "saena_tpu_torch.oracles, saena_tpu_torch.io.readers, "
-            "saena_tpu_torch.io.nektar, saena_tpu_torch.config\n"
+            "saena_tpu_torch.io.nektar, saena_tpu_torch.config, "
+            "saena_tpu_torch.amg.pcoarsen, saena_tpu_torch.ops.bspgemm\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(','.join(bad))")

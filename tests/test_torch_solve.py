@@ -57,7 +57,7 @@ META = {
 
 def flatten_hierarchy(H):
     """(arrays, meta) of a saena_tpu Hierarchy (DIA / ELL / dense / BSR /
-    strip / strip8 levels, direct or structural P/R), for
+    strip / strip8 levels, direct or structural P/R, smoothers' twins), for
     convert.load_hierarchy."""
     arrays, levels = {}, []
 
@@ -88,6 +88,9 @@ def flatten_hierarchy(H):
         levels.append({"n": L.n, "lvl": L.lvl, "eig_max": L.eig_max,
                        "A": put(f"L{l}.A", L.A), "P": put(f"L{l}.P", L.P),
                        "R": put(f"L{l}.R", L.R)})
+        if L.A_smooth is not None:      # Options.smooth_dtype's twin
+            levels[-1]["A_smooth"] = dict(put(f"L{l}.A_smooth", L.A_smooth),
+                                          dtype=str(L.A_smooth.dtype))
     coarse = {"kind": None}
     if H.coarse_lu is not None and H.coarse_lu.inv is not None:
         coarse = {"kind": "inv", "n": H.coarse_lu.n}
