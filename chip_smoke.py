@@ -32,6 +32,10 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
      every perrow (1, 2, 4) in general and in interval mode (the port's
      native planner) and a synthetic interval-mode layout whose last
      tile's strip base reaches past the last strip of x.
+   - the sharded shapes: shard 1 of each ShardedDia level of the D = 4
+     f64 sharded hierarchy of the host levels (K1 in rectangular mode: the
+     shard's rows over its halo-extended x, x_row0 = lo_pad / 128), and
+     shard 1 of the level-2 A in strip8 (K3 on a shard's tiles).
    - both: an operator of one real pair / tile, and layouts cut into small
      chunks so that row blocks are cut (unit counts no multiple of the
      chunk). Every case runs on both paths of its kernel (rows and stream),
@@ -103,6 +107,25 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    (j) rap="device" against rap="host" in the 48^3 f64 serial setup:
        equal level sizes, every level within 1e-11 of its max |A|, the
        golden's iterations both ways; rap seconds and block pairs.
+   (k) the sharded solve (saena_tpu_torch/parallel/) on the same host
+       levels, f64, in one process with every shard on the card: D = 1, 2,
+       4 and 8 shards with the defaults (replicate_threshold 5000, the
+       shrink_comm_ratio rule), each with the golden's iterations and the
+       history at rtol 1e-6 against the serial graph solve of (a), its
+       formats and active shards, its launches, the ms of 20 graph solves
+       after a warm one, the capture ms, and the graph solve against the
+       same loop uncaptured (u and history bit for bit, equal launches);
+       then at D = 4: sharded_format "ell", "bsr", "strip8" and "dia",
+       halo_mode "allgather", compress_halo with a bf16 and an int8_block
+       wire, shrink_values (0, 2, 2), a dense ring level, f32 and f32 with
+       bf16 smoothers' twins, each to rel_res < 1e-8 within the iterations
+       tests/test_parallel.py allows for the option; the sharded profile
+       (profile_sharded_matvecs); update1 through update_sharded_values;
+       and the D = 4 solve through parallel/multihost.py on an NCCL group
+       of world size 1 (4 shards on its one rank), its u within 1e-12 of
+       the single-process one, captured where the capture takes NCCL's
+       all_reduce (the row says whether it was). K1 must launch in
+       rectangular mode (a ShardedDia shard's block) and K3 on shards.
    Every kernel must have launched in phase 3, the strip and strip8
    kernels on both of their paths, the DIA kernel in both of its designs:
    the tiled kernel for every operator of more than 8 diagonals (level 1),
@@ -131,10 +154,17 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    K2 on the forced level-2 A, both paths) with their bound at bf16 value
    bytes and their launches per solve; cuSPARSE has no bf16-A / f32-x
    SpMV, so their yardstick is its f32 product. Then the H100 cost
-   constants of the format picker, fitted from these times.
+   constants of the format picker, fitted from these times. The sharded
+   path's shapes (phase 3k, D = 4): K1 rectangular on shard 1 of level 0
+   (f32, f64; SpMV, Chebyshev update, residual) and K3 on shard 1 of the
+   level-2 A, each with its plain version, cuSPARSE's SpMV of the same
+   block and its launches per sharded solve; and the level-2 ShardedStrip8
+   matvec split into its halo extension, K3 per shard (alone and all
+   shards in a row) and the stack.
 
 The second-to-last line is one JSON object listing every ported kernel,
-and each kernel's bf16-values mode as an entry of its own; the last line is
+each kernel's bf16-values mode as an entry of its own, and K1's rectangular
+mode and K3 on a shard (the sharded path) likewise; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when no CUDA card is present or the port's package is missing.
 """
@@ -313,9 +343,9 @@ def unaligned(t):
     return store[1:]
 
 
-def check_kernels(dev, ops):
-    """DIA kernel vs plain for every case x plan configuration x dtype x
-    variant; two launches must agree bit for bit, and x, rhs and dinv given
+def check_kernels(dev, ops, extra=()):
+    """DIA kernel vs plain for every case (``extra``: more cases in
+    kernel_cases' form) x plan configuration x dtype x variant; two launches must agree bit for bit, and x, rhs and dinv given
     as views that are not 16-byte aligned must give the aligned call's bits.
     Returns (rows of (case, config, variant, dtype, scaled_err,
     max_abs_err), worst failure or None)."""
@@ -324,7 +354,7 @@ def check_kernels(dev, ops):
     from saena_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_plain
 
     rows, bad, configs = [], None, set()
-    for case, data64, offs, m_pad, x_row0, n in kernel_cases(dev, ops):
+    for case, data64, offs, m_pad, x_row0, n in kernel_cases(dev, ops) + list(extra):
         n_pad = data64.shape[1]
         rng = np.random.default_rng(len(case))
         nx = n if m_pad == n_pad else m_pad      # zero-padded in square mode
@@ -1383,6 +1413,468 @@ def rap_device(dev, golden):
     return row, bad
 
 
+# ---------------------------------------------- phase 3k: sharded solves --
+
+SHARD_COUNTS = (1, 2, 4, 8)
+SHARD_D = 4                      # the shard count of phase 2's and 3k's options
+
+
+def sharded_problem():
+    """(A, rhs): the 48^3 Poisson interior system the golden solves."""
+    from saena_tpu_torch.core.coo import remove_boundary_nodes
+    from saena_tpu_torch.generators import laplacian3D, laplacian3D_set_rhs
+
+    A, _, _, _, rhs = remove_boundary_nodes(laplacian3D(M, M, M),
+                                            laplacian3D_set_rhs(M, M, M))
+    return A, rhs
+
+
+def sharded_build(info, mesh, dtype, eigs=None, fmt="auto", **kw):
+    """(ShardedHierarchy, splits, Options, build seconds) of the host levels
+    on ``mesh``."""
+    from saena_tpu_torch.config import Options
+    from saena_tpu_torch.parallel.sharded import shard_hierarchy
+
+    opts = Options(**kw)
+    t0 = time.perf_counter()
+    sh, splits = shard_hierarchy(info, opts, mesh, dtype=dtype, eigs=eigs,
+                                 sharded_format=fmt)
+    return sh, splits, opts, time.perf_counter() - t0
+
+
+def sharded_formats(sh) -> list:
+    """Per sharded level: its operator's format with its shape, and its
+    active shards; then the replicated tail's formats."""
+    from saena_tpu_torch.parallel import sharded as S
+
+    out = []
+    for lv, act in zip(sh.sharded, sh.d_active):
+        A = lv.A
+        f = type(A).__name__
+        if isinstance(A, S.ShardedDia):
+            f += (f"({len(A.offsets)}x{A.n_loc}, x {A.lo_pad}+{A.n_loc}+{A.hi_pad}"
+                  f", {A.plan.config if A.plan is not None else 'plain'})")
+        elif isinstance(A, S.ShardedStrip8):
+            f += f"(pr{A.perrow},{A.mode},{A.idx.shape[1]} tiles)"
+        out.append({"level": lv.lvl, "n": lv.n, "A": f, "active": act,
+                    "R": type(lv.R_next).__name__ if lv.R_next is not None else None,
+                    "twin": str(lv.A_smooth.dtype) if lv.A_smooth is not None else None})
+    out.append({"tail": level_formats(sh.replicated)})
+    return out
+
+
+def sharded_solve(sh, splits, mesh, opts, rhs, graphs=None, tol=1e-8):
+    from saena_tpu_torch.amg.hierarchy import SolveParams
+    from saena_tpu_torch.parallel.sharded import sharded_solve_pCG
+
+    return sharded_solve_pCG(sh, splits, rhs, mesh,
+                             params=SolveParams.from_options(opts), tol=tol,
+                             max_iter=100, graphs=graphs)
+
+
+def sharded_check(label, sh, splits, mesh, opts, rhs, ref_hist, golden, spread_reps):
+    """The sharded pCG on ``sh`` through graphs against the same loop
+    uncaptured (equal iterations, u and history bit for bit, equal
+    launches), the golden's iterations and the history at rtol 1e-6
+    against the serial graph solve (``ref_hist``; None: rel_res < 1e-8 in
+    at most 100 iterations), the spread of ``spread_reps`` graph solves and
+    the capture ms. Returns (row, out of the graph solve, failure or None)."""
+    (ue, ite, r0e, rfe, he), le = launch_delta(
+        lambda: sharded_solve(sh, splits, mesh, opts, rhs, graphs=False))
+    out, lg = launch_delta(lambda: sharded_solve(sh, splits, mesh, opts, rhs))
+    ug, itg, r0g, rfg, hg = out
+    loop = next(iter(sh.graphs.values()))
+    row = {"run": label, "formats": sharded_formats(sh), "iters": itg,
+           "rel_res": rfg / r0g, "capture_ms": loop.capture_ms,
+           "launches_graph": lg, "launches_eager": le}
+    bad = None
+    if not np.isfinite(ug).all():
+        bad = "non-finite solution"
+    elif itg != ite or not (np.array_equal(ug, ue)
+                            and np.array_equal(hg, he, equal_nan=True)):
+        bad = (f"graph and uncaptured solves differ: {itg} / {ite} iterations, u by "
+               f"{np.max(np.abs(ug - ue)):.3e}")
+    elif lg != le:
+        bad = f"launches a solve: graph {lg} != uncaptured {le}"
+    elif ref_hist is not None:
+        hist = hg[: itg + 1]
+        if itg != golden["iters"] or not np.allclose(hist, ref_hist, rtol=1e-6, atol=0.0):
+            bad = (f"{itg} iterations (golden {golden['iters']}), history off the "
+                   f"serial solve by {np.max(np.abs(hist / ref_hist[: itg + 1] - 1)):.3e}")
+    elif not (rfg / r0g < 1e-8 and itg <= 100):
+        bad = f"rel_res {rfg / r0g:.3e} after {itg} iterations"
+    if spread_reps:
+        row["graph"] = spread(lambda: sharded_solve(sh, splits, mesh, opts, rhs),
+                              reps=spread_reps)
+    print("  " + json.dumps(row))
+    return row, out, bad
+
+
+def nccl_world_one(dev, info, eigs, rhs, ref):
+    """The D = 4 default solve through parallel/multihost.py: an NCCL
+    process group of world size 1 holding 4 shards. A mesh with a group
+    runs its all_to_all, all_gather and psum through the group at any
+    world size (comm.py), so the halo exchange is an NCCL
+    all_to_all_single and the dots NCCL all_reduces; its ppermutes stay on
+    the rank. Captured when the capture takes NCCL's collectives, else run
+    uncaptured (the row says which); the row counts the collectives the
+    first solve called (with graphs: the warm-up's and the captured ones).
+    Returns (row, failure or None)."""
+    import gc
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from saena_tpu_torch.amg.graphs import GraphCaptureError
+    from saena_tpu_torch.parallel.multihost import global_mesh, init_distributed
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init_distributed(f"tcp://127.0.0.1:{port}", world_size=1, rank=0,
+                     backend="nccl" if torch.device(dev).type == "cuda" else "gloo")
+    sh = None
+    try:
+        mesh = global_mesh(SHARD_D, device=dev)
+        sh, splits, opts, _ = sharded_build(info, mesh, ref["dtype"], eigs)
+        row = {"backend": mesh.backend, "world": mesh.world, "shards": mesh.size}
+        graphs = mesh.device.type == "cuda"
+        calls = dict.fromkeys(("all_to_all_single", "all_gather_into_tensor",
+                               "all_reduce"), 0)
+        saved = {k: getattr(dist, k) for k in calls}
+
+        def counted(name):
+            def call(*a, **kw):
+                calls[name] += 1
+                return saved[name](*a, **kw)
+            return call
+
+        for k in calls:
+            setattr(dist, k, counted(k))
+        try:
+            out = sharded_solve(sh, splits, mesh, opts, rhs, graphs=graphs)
+            row["captured"] = graphs
+        except GraphCaptureError as e:
+            row["captured"] = False
+            row["capture_error"] = str(e)[:300]
+            sh.graphs.clear()
+            out = sharded_solve(sh, splits, mesh, opts, rhs, graphs=False)
+        finally:
+            for k, fn in saved.items():
+                setattr(dist, k, fn)
+        row["nccl_calls"] = dict(calls)
+        u, it, r0, rf, hist = out
+        row.update(iters=it, rel_res=rf / r0,
+                   u_diff=float(np.max(np.abs(u - ref["u"]))) / float(np.max(np.abs(ref["u"]))))
+        if row["captured"]:
+            row["graph"] = spread(lambda: sharded_solve(sh, splits, mesh, opts, rhs),
+                                  reps=5)
+        print("  " + json.dumps(row))
+        bad = None
+        if it != ref["iters"] or not row["u_diff"] <= 1e-12:
+            bad = f"NCCL world-1 solve: {it} iterations, u off by {row['u_diff']:.3e}"
+        elif min(calls["all_to_all_single"], calls["all_reduce"]) <= 0:
+            bad = f"NCCL world-1 solve called no NCCL collective: {calls}"
+        return row, bad
+    finally:
+        # the graphs that hold NCCL's kernels go before their communicator
+        if sh is not None:
+            sh.graphs.clear()
+            gc.collect()
+            if torch.device(dev).type == "cuda":
+                torch.cuda.synchronize()
+        dist.destroy_process_group()
+
+
+def sharded_update1(dev, mesh):
+    """update1 (A x 1.5) through update_sharded_values: an AMG on the card,
+    its D = 4 sharded hierarchy, the API's update1, the values-only
+    sharded refresh (eig estimates kept), and a sharded solve of the
+    updated system against the serial solve after the update. Returns
+    (row, failure or None)."""
+    import torch
+
+    from saena_tpu_torch import AMG, Matrix, Options, generators
+    from saena_tpu_torch.parallel.sharded import shard_hierarchy, update_sharded_values
+
+    def matrix(A):
+        mat = Matrix()
+        mat.set_csr(A)
+        mat.assemble(device=dev, dtype=torch.float64)
+        return mat
+
+    A0 = generators.laplacian3D(M, M, M).tocsr()
+    sv = AMG(device=dev, dtype=torch.float64)
+    sv.set_matrix(matrix(A0), Options(remove_boundary=True))
+    sv.set_rhs(generators.laplacian3D_set_rhs(M, M, M))
+    opts = Options()
+    sh0, _ = shard_hierarchy(sv.info, opts, mesh, dtype=torch.float64)
+    sv.update1(matrix((1.5 * A0).tocsr()))
+    t0 = time.perf_counter()
+    sh1, splits = update_sharded_values(sh0, sv.info, opts, mesh, dtype=torch.float64)
+    upd_s = time.perf_counter() - t0
+    _, rhs = sharded_problem()
+    u, it, r0, rf, hist = sharded_solve(sh1, splits, mesh, opts, rhs)
+    _, ref = sv.solve_pCG()
+    row = {"update": "update1", "refresh_s": upd_s, "iters": it,
+           "serial_iters": ref.iters, "rel_res": rf / r0,
+           "eigs_kept": [lv.eig_max for lv in sh1.sharded] ==
+           [lv.eig_max for lv in sh0.sharded]}
+    print("  " + json.dumps(row))
+    ok = row["eigs_kept"] and it == ref.iters and rf / r0 < 1e-8 and np.isfinite(u).all()
+    return row, None if ok else f"update1 through update_sharded_values: {row}"
+
+
+# the option runs at D = SHARD_D: (label, dtype, sharded_format, Options
+# keywords, iteration rule). The rule is what tests/test_parallel.py
+# allows for the option: "serial" the serial solve's iterations, ("near",
+# run, k) within k of that run's, "max" at most 100; every run must reach
+# rel_res < 1e-8
+SHARD_OPTIONS = (
+    ("ell", "float64", "ell", {}, "serial"),
+    ("bsr", "float64", "bsr", {}, "serial"),
+    ("strip8", "float64", "strip8", {}, "serial"),
+    ("dia", "float64", "dia", {}, "max"),
+    ("allgather", "float64", "auto", {"halo_mode": "allgather"}, "serial"),
+    ("halo_bf16", "float64", "auto", {"compress_halo": True}, "max"),
+    ("halo_int8_block", "float64", "auto",
+     {"compress_halo": True, "halo_dtype": "int8_block"}, ("near", "default", 2)),
+    ("shrink_values", "float64", "auto", {"shrink_values": (0, 2, 2)}, "serial"),
+    ("dense_ring", "float64", "auto",
+     {"replicate_threshold": 2000, "dense_thre": 0.005, "dense_sz_thre": 3000}, "max"),
+    ("f32", "float32", "auto", {}, "max"),
+    ("f32_bf16_twins", "float32", "auto", {"smooth_dtype": "bfloat16"},
+     ("near", "f32", 1)),
+)
+
+
+def sharded_solves(dev, info, golden, serial, zero, read, d4):
+    """Phase 3k. ``serial``: (iterations, history) of the serial f64 graph
+    solve on the same host levels; ``d4``: phase 2's (hierarchy, splits,
+    mesh) at D = SHARD_D, the run at that D. Returns (report, launches of
+    the phase, failure or None)."""
+    import torch
+
+    from saena_tpu_torch import profiling
+    from saena_tpu_torch.config import Options
+    from saena_tpu_torch.parallel.comm import Mesh
+
+    A, rhs = sharded_problem()
+    rep = {"by_D": [], "options": []}
+    total = None
+    f64 = torch.float64
+
+    def run(label, sh, splits, mesh, opts, ref_hist, reps):
+        """One run of sharded_check, its launches added to the phase's."""
+        nonlocal total
+        zero()
+        row, out, bad = sharded_check(label, sh, splits, mesh, opts, rhs, ref_hist,
+                                      golden, reps)
+        launched, bad_count = read()
+        total = launched if total is None else {k: total[k] + launched[k] for k in total}
+        return row, out, bad or bad_count
+
+    def per_shape(row):
+        return {k: v for k, v in row["launches_graph"].items() if " " in k}
+
+    eigs = None
+    meshes, default = {}, {}
+    for D in SHARD_COUNTS:
+        if D == SHARD_D:
+            sh, splits, mesh = d4
+            opts, build_s = Options(), None
+        else:
+            mesh = Mesh(D, dev)
+            sh, splits, opts, build_s = sharded_build(info, mesh, f64, eigs)
+        meshes[D] = mesh
+        eigs = eigs or [lv.eig_max for lv in sh.sharded] + \
+            [L.eig_max for L in sh.replicated.levels]
+        row, out, bad = run(f"D={D}", sh, splits, mesh, opts, serial[1], SPREAD_REPS)
+        row["build_s"] = build_s
+        rep["by_D"].append(row)
+        if bad:
+            return rep, total, f"D = {D}: {bad}"
+        if D == SHARD_D:
+            default = {"sh": sh, "splits": splits, "mesh": mesh, "opts": opts,
+                       "u": out[0], "iters": out[1], "dtype": f64,
+                       "per_shape": per_shape(row)}
+            rep["default"] = default
+    mesh = meshes[SHARD_D]
+    iters = {"default": default["iters"]}
+    for label, dname, fmt, kw, rule in SHARD_OPTIONS:
+        sh, splits, opts, build_s = sharded_build(info, mesh, getattr(torch, dname),
+                                                  eigs, fmt, **kw)
+        row, out, bad = run(label, sh, splits, mesh, opts, None, 0)
+        row["build_s"] = build_s
+        iters[label] = out[1]
+        if label == "f32":
+            rep["f32_per_shape"] = per_shape(row)
+        rep["options"].append(row)
+        kinds = [f["A"].split("(")[0] for f in row["formats"][:-1]]
+        want = {"ell": "ShardedEll", "bsr": "ShardedBsr", "strip8": "ShardedStrip8",
+                "dia": "ShardedDia", "dense_ring": "ShardedDense"}.get(label)
+        if bad is None and want is not None and want not in kinds:
+            bad = f"no {want} level: {kinds}"
+        if bad is None and label == "shrink_values" and \
+                sh.d_active[:2] != (SHARD_D, SHARD_D // 2):
+            bad = f"active shards {sh.d_active}"
+        if bad is None and label == "f32_bf16_twins" and \
+                not any(lv.A_smooth is not None for lv in sh.sharded):
+            bad = "no bf16 twin"
+        if bad is None:
+            if rule == "serial" and out[1] != serial[0]:
+                bad = f"{out[1]} iterations, the serial solve {serial[0]}"
+            elif isinstance(rule, tuple) and abs(out[1] - iters[rule[1]]) > rule[2]:
+                bad = f"{out[1]} iterations, {rule[1]} {iters[rule[1]]}"
+        if bad:
+            return rep, total, f"{label}: {bad}"
+    zero()
+    print("  profile_sharded_matvecs, D = 4, f64:")
+    rows = profiling.profile_sharded_matvecs(default["sh"], mesh, n_iter=20)
+    rep["profile"] = rows
+    print("  " + profiling.format_sharded_profile(rows).replace("\n", "\n  "))
+    rep["update1"], bad = sharded_update1(dev, mesh)
+    rep["nccl"], bad2 = nccl_world_one(dev, info, eigs, rhs, default)
+    launched, bad_count = read()
+    total = {k: total[k] + launched[k] for k in total}
+    return rep, total, bad or bad2 or bad_count
+
+
+def shard_cases(dev, info):
+    """Phase 2's sharded shapes: the D = SHARD_D f64 sharded hierarchy of
+    the host levels as shard_hierarchy builds it on the card, K1's cases
+    (shard 1 of each ShardedDia level: its rectangular block, x the
+    halo-extended block, x_row0 = lo_pad / 128) and K3's case (shard 1 of
+    the level-2 A in strip8: the hierarchy's own layout where the picker
+    took strip8 there, else sharded_format="strip8"'s), with its block in
+    extended-local columns as a host CSR. Returns (hierarchy, splits, mesh,
+    K1 cases, {name: (kind, layout, host CSR)})."""
+    import torch
+
+    from saena_tpu_torch.parallel import sharded as S
+    from saena_tpu_torch.parallel.comm import Mesh
+    from saena_tpu_torch.parallel.partition import subset_split
+
+    mesh = Mesh(SHARD_D, dev)
+    sh, splits, _, build_s = sharded_build(info, mesh, torch.float64)
+    print(f"  D = {SHARD_D} sharded hierarchy built in {build_s:.1f} s: "
+          + json.dumps(sharded_formats(sh)))
+    dia = []
+    for lv in sh.sharded:
+        A = lv.A
+        if isinstance(A, S.ShardedDia):
+            dia.append((f"shard1_L{lv.lvl}_{len(A.offsets)}diag", A.data[1],
+                        A.ext_offsets, A.lo_pad + A.n_loc + A.hi_pad,
+                        A.lo_pad // 128, A.n_loc))
+    A2 = info.csr_levels[2]
+    split2 = splits[2] if len(splits) > 2 else subset_split(A2, SHARD_D, SHARD_D)
+    op = sh.sharded[2].A if len(sh.sharded) > 2 else None
+    if not isinstance(op, S.ShardedStrip8):
+        op = S._build_sharded_strip8(A2, split2, split2, torch.float64, "exchange", mesh)
+    geo = S._sharded_strip8_geometry(A2, split2, split2, "exchange")
+    gather = {"shard1_L2_A": ("strip8", op.views[1], geo[0][1].tocsr())}
+    return sh, splits, mesh, dia, gather
+
+
+def view_launches_per_solve(op, solve) -> int:
+    """K3's launches on the shard views of ``op`` (a ShardedStrip8) in one
+    call of ``solve``, an uncaptured loop: each view's own counter, which
+    K3's wrapper adds to where it launches."""
+    views = [M for M in op.views if M is not None]
+    for M in views:
+        M.launches = 0
+    solve()
+    return sum(M.launches for M in views)
+
+
+def sharded_strip8_breakdown(dev, sh) -> dict:
+    """µs of the level-2 ShardedStrip8 matvec of ``sh`` (f64, graph-
+    replayed) and of its parts: the halo extension, the pad to n_cols_pad,
+    K3 on each shard alone (its tiles stay in L2 from call to call), K3 on
+    every shard in a row (as the matvec runs them) and the stack."""
+    import torch
+
+    from saena_tpu_torch.ops import strip8_spmv as s8
+    from saena_tpu_torch.profiling import graph_ms
+
+    lv = sh.sharded[2]
+    A = lv.A
+    x = torch.ones(lv.inv_diag.shape, dtype=torch.float64, device=dev)
+    ext = A.plan.extend(x)
+    pad = lambda: torch.nn.functional.pad(ext, (0, A.n_cols_pad - ext.shape[-1]))
+    xp = pad()
+    views = [(d, M) for d, M in enumerate(A.views) if M is not None]
+    ys = [s8.strip8_spmv(M, xp[d]) for d, M in views]
+    us = lambda fn: graph_ms(fn) * 1e3
+    out = {"matvec_us": us(lambda: A.matvec(x)), "extend_us": us(lambda: A.plan.extend(x)),
+           "pad_us": us(pad),
+           "k3_alone_us": [us(lambda M=M, d=d: s8.strip8_spmv(M, xp[d])) for d, M in views],
+           "k3_in_a_row_us": us(lambda: [s8.strip8_spmv(M, xp[d]) for d, M in views]),
+           "stack_us": us(lambda: torch.stack(ys)),
+           "tiles": [int(M.tile_list.numel()) for _, M in views],
+           "tile_bytes": int(sum(M.idx[: M.tile_list.numel()].numel()
+                                 * (1 + M.vals.element_size()) for _, M in views))}
+    print("  " + json.dumps(out))
+    return out
+
+
+def time_rect_dia(dev, sh, info, per_shape: dict) -> list:
+    """K1 in rectangular mode on shard 1 of the level-0 ShardedDia (f32,
+    f64; SpMV, Chebyshev update, residual): kernel ms graph-replayed, the
+    plain version, cuSPARSE's CSR SpMV of the same block (rows of the shard,
+    columns of its extended x), the bound (data, x over the extended block,
+    rhs / dinv, y each once) and launches per sharded solve (``per_shape``:
+    {dtype name: {"<n_loc>x<ndiag> <variant>": launches}} of one D = SHARD_D
+    solve at that dtype, phase 3k's default f64 run and its f32 run)."""
+    import scipy.sparse as sp
+    import torch
+
+    from saena_tpu_torch.ops import dia_spmv as dmod
+    from saena_tpu_torch.profiling import graph_ms
+
+    A0 = sh.sharded[0].A
+    n_loc, nd, lo = A0.n_loc, len(A0.offsets), A0.lo_pad
+    m_pad = lo + n_loc + A0.hi_pad
+    r0 = n_loc                                     # shard 1's first row
+    Ah = info.csr_levels[0]
+    blk = Ah[r0: r0 + n_loc].tocoo()
+    block = sp.csr_matrix((blk.data, (blk.row, blk.col - r0 + lo)),
+                          shape=(n_loc, m_pad))
+    rows = []
+    for dname in ("float32", "float64"):
+        dt = getattr(torch, dname)
+        data = A0.data[1].to(dt).contiguous()
+        plan = dmod.dia_plan(A0.ext_offsets, n_loc, dt, dmod.sm_count(dev))
+        rng = np.random.default_rng(5)
+        x = torch.tensor(rng.standard_normal(m_pad), dtype=dt, device=dev)
+        rhs = torch.tensor(rng.standard_normal(n_loc), dtype=dt, device=dev)
+        dinv = torch.tensor(1.0 / Ah.diagonal()[r0: r0 + n_loc], dtype=dt, device=dev)
+        Acsr = csr_on_card(block, dt, dev, n_loc, m_pad)
+        isz = data.element_size()
+        for vname in ("spmv", "cheb", "residual"):
+            has_rhs, has_dinv, c, add_x = VARIANTS[vname]
+            kw = dict(rhs=rhs if has_rhs else None, dinv=dinv if has_dinv else None,
+                      c=c, add_x=add_x, x_row0=lo // 128)
+            nbytes = nd * isz * n_loc + m_pad * isz + (1 + has_rhs + has_dinv) * isz * n_loc
+            flops = (2 * nd + 3 * has_rhs) * n_loc
+            b_ms, b_by = bound(nbytes, flops, dname)
+            r = {"kernel": "dia_spmv", "shape": f"L0 shard {nd}x{n_loc} on x of {m_pad}",
+                 "dtype": dname, "variant": vname, "plan": plan.describe(),
+                 "ms": graph_ms(lambda: dmod.dia_spmv(
+                     data, x, A0.ext_offsets, offsets_dev=A0.offsets_dev, plan=plan,
+                     **kw)),
+                 "plain_ms": graph_ms(lambda: dmod.dia_spmv_plain(
+                     data, x, A0.ext_offsets, **kw), reps=10, replays=5),
+                 "library_ms": graph_ms(lambda: Acsr @ x) if vname == "spmv" else None,
+                 "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
+                 "launches_per_solve": per_shape[dname].get(f"{n_loc}x{nd} {vname}", 0)}
+            r["share_of_bound"] = b_ms / r["ms"]
+            rows.append(r)
+            print("  " + json.dumps(r))
+    return rows
+
+
 # ---------------------------------------------------------- phase 4: times --
 
 
@@ -1796,7 +2288,8 @@ def main() -> int:
             mod.launches = mod.bf16_launches = 0
         s1_mod.stream_launches = s8_mod.stream_launches = 0
         s8_mod.interval_launches = 0
-        dia_mod.rows_launches = 0
+        dia_mod.rows_launches = dia_mod.rect_launches = 0
+        s8_mod.shard_launches = 0
         dia_mod.shape_launches.clear()
 
     def read():
@@ -1812,6 +2305,8 @@ def main() -> int:
         out["strip8_spmv/general"] = s8_mod.launches - s8_mod.interval_launches
         out["dia_spmv/tiled"] = dia_mod.launches - dia_mod.rows_launches
         out["dia_spmv/rows"] = dia_mod.rows_launches
+        out["dia_spmv/rect"] = dia_mod.rect_launches
+        out["strip8_spmv/shard"] = s8_mod.shard_launches
         shapes = dia_mod.shape_launches
         narrow = sum(v for (_, nd, _), v in shapes.items() if nd <= dia_mod.CHUNK)
         bad = None
@@ -1860,12 +2355,16 @@ def main() -> int:
                       for k, v in ops.items()))
 
     # ---- 2. kernels vs plain
+    print(f"[2] the sharded shapes: the D = {SHARD_D} f64 sharded hierarchy of the "
+          "host levels")
+    sh4, splits4, mesh4, dia_shards, gather_shards = shard_cases(dev, info)
     print("[2] DIA kernel vs plain version")
-    checks, bad = check_kernels(dev, ops)
+    checks, bad = check_kernels(dev, ops, dia_shards)
     if bad:
         return fail(f"DIA kernel disagrees with its plain version: {bad}")
     print("[2] strip / strip8 kernels vs plain versions")
     cases = gather_cases(dev, ops)
+    cases.update(gather_shards)
     gchecks, bad = check_gather(dev, cases)
     if bad:
         return fail(f"gather kernel disagrees with its plain version: {bad}")
@@ -1885,6 +2384,8 @@ def main() -> int:
         return fail(f"f64 main path: {bad or bad_count}")
     if solver64.info.formats[1] != "DiaMatrix":
         return fail(f"level 1 is {solver64.info.formats[1]}, not wide DIA")
+    _, res64 = solver64.solve_pCG()          # phase 3k's serial reference
+    serial64 = (res64.iters, res64.history[: res64.iters + 1].cpu().numpy())
     print(f"[3a] main path f32, {M}^3")
     zero()
     solver32, rep32, bad = solve_main_path(dev, torch.float32, None)
@@ -2009,11 +2510,27 @@ def main() -> int:
     if bad or bad_count:
         return fail(f"rap=device: {bad or bad_count}")
     print(f"[3j] launches: {launches_j}; wall {time.perf_counter() - t0:.1f} s")
+    print(f"[3k] the sharded solve (saena_tpu_torch/parallel/), {M}^3 f64 on "
+          f"{', '.join(map(str, SHARD_COUNTS))} shards of the card against the serial "
+          f"graph solve; the options at D = {SHARD_D}; the sharded profile; update1 "
+          f"through update_sharded_values; an NCCL group of world size 1; {card}")
+    t0 = time.perf_counter()
+    rep3k, launches_k, bad = sharded_solves(dev, info, golden, serial64, zero, read,
+                                            (sh4, splits4, mesh4))
+    if bad:
+        return fail(f"sharded solves: {bad}")
+    print(f"[3k] K1 rectangular launches {launches_k['dia_spmv/rect']}, K3 launches "
+          f"on shards {launches_k['strip8_spmv/shard']}; launches: {launches_k}; "
+          f"wall {time.perf_counter() - t0:.1f} s")
+    if min(launches_k["dia_spmv/rect"], launches_k["strip8_spmv/shard"]) <= 0:
+        return fail("K1 in rectangular mode or K3 on a shard never launched on the "
+                    "sharded path")
     for extra in (launches_d, launches_e, launches_f, launches_g, launches_h,
-                  launches_i, launches_j):
+                  launches_i, launches_j, launches_k):
         launches = {k: launches[k] + extra[k] for k in launches}
     print(f"[3] launches on the main path: {launches}")
-    # every kernel and both paths of K2 and K3 (either strip8 mode will do)
+    # every kernel, both paths of K2 and K3 (either strip8 mode will do), K1
+    # over a shard's rectangular block and K3 on a shard's view
     if min(v for k, v in launches.items()
            if not k.endswith(("/interval", "/general"))) <= 0:
         return fail(f"a kernel or a path never launched on the main path: {launches}")
@@ -2070,6 +2587,27 @@ def main() -> int:
             {r["kernel"] for r in bf_rows} != set(counters):
         return fail("a bf16 operator of phase 4 never launched in its solve: "
                     + json.dumps([(r["kernel"], r["launches_per_solve"]) for r in bf_rows]))
+    print(f"[4] the sharded path's shapes (phase 3k, D = {SHARD_D}): K1 rectangular on "
+          "shard 1 of level 0, K3 on shard 1 of the level-2 A, launches per "
+          "sharded solve")
+    d = rep3k["default"]
+    rect_rows = time_rect_dia(dev, d["sh"], info,
+                              {"float64": d["per_shape"],
+                               "float32": rep3k["f32_per_shape"]})
+    _, rhs_k = sharded_problem()
+    op2 = d["sh"].sharded[2].A if len(d["sh"].sharded) > 2 else None
+    per_solve = 0
+    if isinstance(getattr(op2, "views", None), tuple):
+        per_solve = view_launches_per_solve(op2, lambda: sharded_solve(
+            d["sh"], d["splits"], d["mesh"], d["opts"], rhs_k, graphs=False))
+    _, view, block = gather_shards["shard1_L2_A"]
+    shard_row = time_gather(dev, "shard1_L2_A", "strip8", view, block,
+                            launches_per_solve=per_solve)
+    print(f"[4] the level-2 ShardedStrip8 matvec at D = {SHARD_D} (f64) and its parts, µs")
+    sharded_strip8_breakdown(dev, d["sh"])
+    if min(r["launches_per_solve"] for r in rect_rows + [shard_row]) <= 0:
+        return fail("a K1 rectangular shape or the level-2 A's K3 views of phase 4 "
+                    f"never launched in the D = {SHARD_D} sharded solve")
     consts = fit_constants(dev, ops, grows)
     print("[4] fitted cost constants: " + json.dumps(consts))
     print(f"[4] total {time.perf_counter() - t_start:.1f} s")
@@ -2093,6 +2631,13 @@ def main() -> int:
         bf_err[f"{k}_spmv"] = max(e for c, _, d, _, e in gchecks
                                   if d == "bfloat16" and cases[c][0] == k)
     bf_row = {r["kernel"]: r for r in reversed(bf_rows)}
+    # the sharded path's modes: K1 rectangular (level-0 shard, f32 SpMV), K3
+    # on a shard (the level-2 A's shard 1, f32)
+    rect_head = next(r for r in rect_rows if r["dtype"] == "float32"
+                     and r["variant"] == "spmv")
+    rect_err = max(e for case, cfg, v, dn, _, e in checks
+                   if case.startswith("shard1_L0") and cfg == "auto" and v == "spmv"
+                   and dn == "float32")
 
     def entry(name, source, replaces, r, err):
         return {"name": name, "route": "cuda", "source": source,
@@ -2114,7 +2659,12 @@ def main() -> int:
         entry(f"{k}/bf16", f"saena_tpu_torch/csrc/{k}.cu", src, bf_row[k], bf_err[k])
         for k, src in (("dia_spmv", "saena_tpu/ops/pallas_dia_spmv.py:148"),
                        ("strip_spmv", "saena_tpu/ops/pallas_strip_spmv.py:116"),
-                       ("strip8_spmv", "saena_tpu/ops/pallas_strip8_spmv.py:96"))]}))
+                       ("strip8_spmv", "saena_tpu/ops/pallas_strip8_spmv.py:96"))] + [
+        entry("dia_spmv/rect", "saena_tpu_torch/csrc/dia_spmv.cu",
+              "saena_tpu/ops/pallas_dia_spmv.py:148", rect_head, rect_err),
+        entry("strip8_spmv/shard", "saena_tpu_torch/csrc/strip8_spmv.cu",
+              "saena_tpu/ops/pallas_strip8_spmv.py:96", shard_row,
+              gerr["shard1_L2_A"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

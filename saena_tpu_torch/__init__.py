@@ -16,7 +16,11 @@ the CUDA card unless the caller passes ``device="cpu"``.
              their loops as CUDA graph replays (graphs.py)
   _native/   C++ host kernels of the setup (MIS(1), strength, SpGEMM, the
              strip/strip8 planners, the GR codec), built with g++ at first use
-  parallel/  the shard-parallel host setup (dist_setup) and row splits
+  parallel/  the shard-parallel host setup (dist_setup), row splits, and the
+             sharded solve: mesh and collectives (comm), halo plans,
+             sharded operators, shrinking and the replicated tail
+             (sharded), multi-process runs over torch.distributed
+             (multihost)
   ops/       device formats (DIA, ELL, dense, BSR, strip, strip8), the
              format picker, structural transfers and the kernels' wrappers
   csrc/      CUDA sources, built with nvcc at first use

@@ -39,10 +39,11 @@ from saena_tpu_torch.ops import dia_spmv, strip8_spmv, strip_spmv
 
 # the wrappers' launch counters: (module, integer counters); the DIA
 # wrapper's launches by shape are a dict, dia_spmv.shape_launches
-_COUNTERS = ((dia_spmv, ("launches", "rows_launches", "bf16_launches")),
+_COUNTERS = ((dia_spmv, ("launches", "rows_launches", "bf16_launches",
+                         "rect_launches")),
              (strip_spmv, ("launches", "stream_launches", "bf16_launches")),
              (strip8_spmv, ("launches", "stream_launches", "interval_launches",
-                            "bf16_launches")))
+                            "bf16_launches", "shard_launches")))
 
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RESTART = 2    # the value of ``go`` when a loop's restart part is next

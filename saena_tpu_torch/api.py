@@ -360,10 +360,10 @@ class AMG:
         """The product A B (ref saena::amg::matmat, saena.cpp:~930): the
         host scipy product, assembled on this AMG's device at ``dtype``
         (this AMG's unless named). The device rings of a mesh (``mesh``,
-        ``mode``) wait for the sharded path and raise."""
+        ``mode``) are not ported yet and raise."""
         if mesh is not None:
             raise NotImplementedError(
-                "matmat on a device mesh waits for the sharded path")
+                "matmat on a device mesh (ops/spgemm.py's rings) is not ported yet")
         C = Matrix()
         C.set_csr((A.csr @ B.csr).tocsr())
         C.assemble(device=self.device, dtype=dtype or self.dtype)
@@ -440,22 +440,23 @@ class AMG:
 
     def set_shrink_levels(self, levels) -> None:
         """Which levels may shrink their device subset (ref
-        set_shrink_levels); read by the sharded path, stored until then."""
+        set_shrink_levels); read by parallel/sharded.shard_hierarchy."""
         self.opts.shrink_levels = tuple(bool(b) for b in levels)
 
     def set_shrink_values(self, values) -> None:
         """Per-level divisors of the device count (ref set_shrink_values);
-        stored until the sharded path."""
+        read by parallel/sharded.shard_hierarchy."""
         self.opts.shrink_values = tuple(int(v) for v in values)
 
     def switch_repart(self, val: bool = True) -> None:
         """The density-triggered equi-row partition switch (ref
-        switch_repart, saena.cpp:717); stored until the sharded path."""
+        switch_repart, saena.cpp:717); read by the row splits of
+        parallel/sharded.shard_hierarchy."""
         self.opts.switch_repart = bool(val)
 
     def set_repart_thre(self, thre: float) -> None:
         """Density threshold of the equi-row switch (ref set_repart_thre);
-        stored until the sharded path."""
+        read by the row splits of parallel/sharded.shard_hierarchy."""
         self.opts.repart_thre = float(thre)
 
     def destroy(self) -> None:

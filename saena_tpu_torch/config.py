@@ -5,8 +5,9 @@ One dataclass carries every option of the reference's configuration surface
 saena_object.h). Field names and defaults are those of `saena_tpu.config`,
 with its JSON/XML loaders and writers. `setup_shards` is read by
 `AMG.set_matrix` (api.py), `structural_transfers`, `smooth_dtype` and `rap`
-by amg/hierarchy.py. Fields that select machinery the port does not have
-yet (the sharded-path policy) are accepted for parity.
+by amg/hierarchy.py, the sharded-path policy (`replicate_threshold`,
+`shrink_*`, `halo_mode`, `compress_halo`, `halo_dtype`, `float_level`'s
+halo wire) by parallel/sharded.py.
 """
 from __future__ import annotations
 

@@ -1,6 +1,8 @@
-"""Build a Hierarchy from plain numpy arrays: the device state of the JAX
-package's hierarchy carried across, so both V-cycles can run on identical
-operators, diagonals, eigenvalue estimates and coarse solves.
+"""Build a Hierarchy (``load_hierarchy``) or a ShardedHierarchy
+(``load_sharded_hierarchy``, below) from plain numpy arrays: the device
+state of the JAX package's hierarchy carried across, so both V-cycles can
+run on identical operators, diagonals, eigenvalue estimates and coarse
+solves.
 
 ``arrays`` maps names to numpy arrays; ``meta`` says what they are::
 
@@ -129,3 +131,97 @@ def load_hierarchy(arrays: dict, meta: dict, dtype=None, device=None) -> Hierarc
                              n=int(coarse["n"]))
     return Hierarchy(levels=tuple(levels), coarse_lu=coarse_lu,
                      inv_sq_diag=vec("inv_sq_diag") if meta.get("scaled") else None)
+
+
+_SHARDED_META = {"ShardedStrip8": ("perrow", "mode", "n_cols_pad", "n_out"),
+                 "ShardedDia": ("offsets", "n_loc", "lo_pad", "hi_pad", "compress"),
+                 "ShardedDense": ("compress",),
+                 "ShardedEll": ("reduce_rows",)}
+
+
+def load_sharded_operator(arrays: dict, key: str, spec, mesh, dtype=None):
+    """The sharded operator ``spec`` (as in ``load_sharded_hierarchy``) with
+    its arrays under ``key.``; they hold every shard (D, ...), of which
+    the mesh's are loaded. None for a spec of None."""
+    from saena_tpu_torch.parallel import sharded as S
+    from saena_tpu_torch.parallel.halo import plan_on
+
+    if spec is None:
+        return None
+    dtype = getattr(torch, spec["dtype"]) if spec.get("dtype") else resolve_dtype(dtype)
+    arr = lambda name: np.asarray(arrays[f"{key}.{name}"])
+    val = lambda name: S._local(mesh, arr(name).astype(np.float64), dtype)
+    idx = lambda name: S._local(mesh, arr(name))
+    fmt = spec["format"]
+    common = dict(shape=tuple(spec["shape"]), nnz=spec["nnz"],
+                  **{k: (tuple(spec[k]) if k == "offsets" else spec[k])
+                     for k in _SHARDED_META.get(fmt, ())})
+    plan = None
+    if "plan" in spec:
+        p = spec["plan"]
+        plan = plan_on(mesh, arr("send_idx"), p["n_local"], p["max_send"],
+                       p["mode"], p.get("compress", ""))
+    if fmt == "ShardedEll":
+        spill = {}
+        if f"{key}.spill_rows" in arrays:
+            spill = dict(spill_rows=idx("spill_rows"), spill_cols=idx("spill_cols"),
+                         spill_vals=val("spill_vals"))
+        return S.ShardedEll(idx("cols"), val("vals"), plan, **spill, **common)
+    if fmt == "ShardedBsr":
+        return S.ShardedBsr(val("blocks"), idx("bcols"), plan, **common)
+    if fmt == "ShardedStrip8":
+        return S.ShardedStrip8(
+            torch.from_numpy(np.array(arr("idx")[mesh.local], dtype=np.int8)
+                             ).to(mesh.device),
+            val("vals"), S._int32(mesh, arr("strips")),
+            S._int32(mesh, arr("gather_idx")), plan, **common)
+    if fmt == "ShardedDia":
+        return S.ShardedDia(val("data"), mesh, **common)
+    if fmt == "ShardedDense":
+        return S.ShardedDense(S._ring_panels(val("data"), mesh.shard_ids()),
+                              mesh, **common)
+    raise ValueError(f"sharded format {fmt!r} is not ported")
+
+
+def load_sharded_hierarchy(arrays: dict, meta: dict, mesh, dtype=None):
+    """The ShardedHierarchy that ``arrays``/``meta`` describe, on ``mesh``
+    (this process's shards of arrays that hold all D) at ``dtype``: the
+    state of a JAX ShardedHierarchy carried across.
+
+    ``meta = {"levels": [{"n", "lvl", "eig_max", "A": spec, "R_next": spec,
+    "P_next": spec, "A_smooth": spec}, ...], "trans_R": spec, "trans_P":
+    spec, "replicated": load_hierarchy's meta, "d_active": [...]}``. Level
+    ``l`` keeps ``S{l}.inv_diag`` and ``S{l}.{A,R_next,P_next,A_smooth}.*``;
+    the transition ``trans_R.*`` / ``trans_P.*``; the tail its
+    load_hierarchy arrays under ``tail.``. A spec names its ``format``
+    (ShardedEll, ShardedBsr, ShardedStrip8, ShardedDia, ShardedDense),
+    ``shape``, ``nnz``, the format's static fields (ShardedEll
+    ``reduce_rows``; ShardedStrip8 ``perrow``, ``mode``, ``n_cols_pad``,
+    ``n_out``; ShardedDia ``offsets``, ``n_loc``, ``lo_pad``, ``hi_pad``,
+    ``compress``; ShardedDense ``compress``), a halo ``plan`` ({"n_local",
+    "max_send", "mode", "compress"}, its ``send_idx`` among the arrays) for
+    the first three, and a twin's ``dtype``. Arrays: ShardedEll ``cols``,
+    ``vals`` and, with a spill, ``spill_rows``, ``spill_cols``,
+    ``spill_vals``; ShardedBsr ``blocks``, ``bcols``; ShardedStrip8
+    ``idx`` (int8), ``vals``, ``strips``, ``gather_idx``; ShardedDia and
+    ShardedDense ``data`` (the dense one in the JAX package's column
+    order)."""
+    from saena_tpu_torch.parallel.sharded import ShardedHierarchy, ShardedLevel
+
+    dtype = resolve_dtype(dtype)
+    levels = []
+    for l, spec in enumerate(meta["levels"]):
+        mats = {k: load_sharded_operator(arrays, f"S{l}.{k}", spec.get(k), mesh, dtype)
+                for k in ("A", "R_next", "P_next", "A_smooth")}
+        inv_d = np.asarray(arrays[f"S{l}.inv_diag"], dtype=np.float64)
+        levels.append(ShardedLevel(
+            inv_diag=torch.from_numpy(inv_d[mesh.local]).to(mesh.device, dtype),
+            n=int(spec["n"]), lvl=int(spec["lvl"]), eig_max=spec.get("eig_max"),
+            **mats))
+    tail = {k[len("tail."):]: v for k, v in arrays.items() if k.startswith("tail.")}
+    return ShardedHierarchy(
+        sharded=tuple(levels),
+        trans_R=load_sharded_operator(arrays, "trans_R", meta["trans_R"], mesh, dtype),
+        trans_P=load_sharded_operator(arrays, "trans_P", meta["trans_P"], mesh, dtype),
+        replicated=load_hierarchy(tail, meta["replicated"], dtype, mesh.device),
+        mesh=mesh, d_active=tuple(meta["d_active"]))

@@ -39,7 +39,11 @@ tensors on the CPU; it never falls back from one to the other. `launches`
 counts kernel launches, `stream_launches` those of the stream path,
 `interval_launches` those of interval-mode layouts, `bf16_launches` those
 with bf16 values (an f32 x and y: the smoothers' twin of an operator,
-Options.smooth_dtype).
+Options.smooth_dtype), `shard_launches` those on a shard's view (a layout
+with ``shard`` set, parallel/sharded.py). A layout's own ``launches``
+counts the launches made on it; a graph replay does not add to it (the
+module's counters it does, amg/graphs.py), so it is read around a loop
+run uncaptured.
 
 The cost constants (``STRIP8_NS_PER_TILE``) are H100 measurements from
 ``chip_smoke.py`` phase 4; see PERF.md.
@@ -74,6 +78,7 @@ launches = 0          # kernel launches made by strip8_spmv, both paths
 stream_launches = 0   # of which the stream path's
 interval_launches = 0  # of which on interval-mode layouts
 bf16_launches = 0      # of which with bf16 values
+shard_launches = 0     # of which on a shard's view (Strip8Matrix.shard set)
 
 # values dtype -> the kernel's code: f32 values with an f32 x and
 # accumulator, bf16 values with an f32 x and accumulator, f64 throughout
@@ -123,12 +128,14 @@ class Strip8Matrix:
     mode; gather_idx (n_rb, t_max) int32; derived: n_split and counter
     (the rows path), tile_list (n_real,) int32, tile_identity, unit_strips
     (n_real * 8,) int32, rbt_ptr (n_rb + 1,) int32 numpy and, on the stream
-    path, chunks (its work tables)."""
+    path, chunks (its work tables). ``shard``: the shard whose view this
+    is (None: not a shard's); ``launches``: the launches made on it."""
 
     def __init__(self, idx, vals, strips, gather_idx, shape, nnz, perrow=1,
-                 mode="general", n_cols_pad=0, n_out=0):
+                 mode="general", n_cols_pad=0, n_out=0, shard=None):
         if mode not in MODES:
             raise ValueError(f"strip8 mode {mode!r}")
+        self.shard, self.launches = shard, 0
         self.idx, self.vals = idx, vals
         self.strips, self.gather_idx = strips, gather_idx
         self.shape, self.nnz = tuple(shape), int(nnz)
@@ -154,7 +161,7 @@ class Strip8Matrix:
         a twin at another dtype; its kernel path is chosen for its dtype."""
         return Strip8Matrix(self.idx, vals, self.strips, self.gather_idx,
                             self.shape, self.nnz, self.perrow, self.mode,
-                            self.n_cols_pad, self.n_out)
+                            self.n_cols_pad, self.n_out, self.shard)
 
     def rechunk(self, chunk_min: int = STRIP8_CHUNK_MIN,
                 whole_max: int = STRIP8_WHOLE_MAX):
@@ -233,7 +240,7 @@ def strip8_spmv(A: Strip8Matrix, x: torch.Tensor) -> torch.Tensor:
 
 
 def _strip8_cuda(A: Strip8Matrix, x):
-    global launches, stream_launches, interval_launches, bf16_launches
+    global launches, stream_launches, interval_launches, bf16_launches, shard_launches
     dev = A.vals.device
     if A.dtype not in _DTYPE_CODE:
         raise TypeError(f"strip8_spmv: values dtype {A.dtype} not supported "
@@ -303,6 +310,8 @@ def _strip8_cuda(A: Strip8Matrix, x):
     stream_launches += C is not None
     interval_launches += A.mode == "interval"
     bf16_launches += A.dtype == torch.bfloat16
+    shard_launches += A.shard is not None
+    A.launches += 1
     return y
 
 
