@@ -126,6 +126,23 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
        the single-process one, captured where the capture takes NCCL's
        all_reduce (the row says whether it was). K1 must launch in
        rectangular mode (a ShardedDia shard's block) and K3 on shards.
+   (l) the device products over a mesh (ops/spgemm.py, the ring of
+       ops/bspgemm.py), no kernel of the port on their path: the 48^3
+       Galerkin product R A P (the level-0 aggregation at theta 0.3, the
+       smoothed P, R = P^T) by triple_product in f64, "auto" (the
+       block-sparse ring), at D = 1, 2, 4, 8 shards of the card, within
+       1e-12 x max |Ac| of the host native product and bit-equal to a
+       second run, with each product's plan, upload, numeric (median of 5
+       after a warm run, CUDA events), assembly, block MB a shard, pairs
+       and bound, beside the host product's seconds and torch.sparse.mm
+       (cuSPARSE) of the same CSR pairs; examples/gemm.py's sweep (5000^2,
+       densities 0.001, 0.005, 0.01, f32 and f64, D = 1 and 4): the ring
+       "auto" picks, its product against scipy (f32: within f32 rounding,
+       so TF32 is off; f64: 1e-12), the dense ring on prepared operands
+       beside torch.matmul and the sparse ring's numeric phase;
+       AMG.matmat(mesh=Mesh(4)) against the host product (1e-12); an
+       EllMatrix with spill, two matvecs bit-equal; spgemm_blocks of the
+       48^3 R A, two calls bit-equal.
    Every kernel must have launched in phase 3, the strip and strip8
    kernels on both of their paths, the DIA kernel in both of its designs:
    the tiled kernel for every operator of more than 8 diagonals (level 1),
@@ -179,6 +196,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -1875,6 +1893,297 @@ def time_rect_dia(dev, sh, info, per_shape: dict) -> list:
     return rows
 
 
+# ------------------------------------------- phase 3l: products over a mesh --
+
+RING_COUNTS = (1, 2, 4, 8)           # shard counts of the 48^3 Galerkin product
+SWEEP_N = 5000                       # examples/gemm.py's default size
+SWEEP_DENS = (0.001, 0.005, 0.01)
+SWEEP_D = (1, 4)
+SWEEP_REPS, SWEEP_WARM = 20, 10
+# peak FLOP/s of one H100 SXM at 700 W for a matrix product without TF32
+# (NVIDIA data sheet): f32 outside the tensor cores, f64 on them
+MATMUL_FLOPS = {"float32": 67e12, "float64": 67e12}
+
+
+def events_ms(fn, reps: int, warm: int = 1) -> dict:
+    """Median, min and max ms of ``reps`` calls of ``fn`` after ``warm``,
+    each between two CUDA events."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+    return {"median": float(np.median(ms)), "min": min(ms), "max": max(ms)}
+
+
+def matmul_bound(nbytes: int, flops: int, dname: str) -> tuple[float, str]:
+    """(bound ms, "bytes" or "operations") of a matrix product."""
+    b_bytes = nbytes / HBM_BPS * 1e3
+    b_ops = flops / MATMUL_FLOPS[dname] * 1e3
+    return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops else "operations")
+
+
+def galerkin_operands():
+    """(R, A, P) of the M^3 Poisson interior's first level: aggregation at
+    theta 0.3 and the smoothed prolongator, by the port's host functions."""
+    from saena_tpu_torch.amg.prolongation import restriction, smoothed_prolongator
+    from saena_tpu_torch.amg.strength import find_aggregation
+
+    A = _poisson_interior(M).tocsr()
+    agg, n_c, _ = find_aggregation(A, 0.3)
+    P = smoothed_prolongator(A, agg, n_c)
+    return restriction(P), A, P
+
+
+def ring_product(X, Y, mesh, dtype, tol, reps: int = 5):
+    """X @ Y on the block-sparse ring by its parts, as matmat_sparse runs
+    them: the host plan with its upload, the numeric phase (median of
+    ``reps`` after a warm run), the gather and assembly. Returns (C, row)."""
+    import torch
+
+    from saena_tpu_torch.ops import bspgemm
+    from saena_tpu_torch.parallel.partition import equal_row_split
+
+    D = mesh.size
+    bk = bspgemm.pick_bk(X, Y)
+    plan = bspgemm._ring_plan(X, Y, D, bk, equal_row_split(X.shape[0], D),
+                              equal_row_split(Y.shape[0], D), dtype, mesh)
+    out = {}
+    t = events_ms(lambda: out.__setitem__("C", bspgemm._ring_bsp_numeric(plan, mesh)),
+                  reps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    C = bspgemm._assemble_ring(mesh.all_gather(out["C"]).cpu().numpy(), plan, tol)
+    asm = time.perf_counter() - t0
+    dname = str(dtype).split(".")[-1]
+    nbytes = (plan.Ab.numel() + plan.Bb.numel() + out["C"].numel()) * plan.Ab.element_size()
+    flops = 2 * plan.pairs * 8 * bk * 128
+    b_ms, b_by = matmul_bound(nbytes, flops, dname)
+    row = {"shape": f"{X.shape[0]}x{X.shape[1]} @ {Y.shape[0]}x{Y.shape[1]}",
+           "D": D, "bk": bk, "pairs": plan.pairs, "nC_max": plan.nC_max,
+           "chunks": int(plan.NCK.sum()), "plan_s": plan.seconds["plan"],
+           "upload_s": plan.seconds["upload"], "numeric_ms": t["median"],
+           "numeric_min_ms": t["min"], "numeric_max_ms": t["max"],
+           "assemble_s": asm, "block_MB_per_shard": nbytes / D / 1e6,
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
+           "nnz": int(C.nnz)}
+    return C, row
+
+
+def same_csr(a, b) -> bool:
+    return a.shape == b.shape and all(
+        np.array_equal(getattr(a, f), getattr(b, f)) for f in ("indptr", "indices", "data"))
+
+
+def galerkin_on_mesh(dev, card):
+    """Phase 3l (1): the 48^3 Galerkin product R A P on D = 1, 2, 4, 8 shards
+    of the card, f64, mode "auto": its parts timed, then triple_product
+    once more, bit-equal to the first; each within 1e-12 x max |Ac| of the
+    host native product. Beside them the host product's seconds and
+    torch.sparse.mm (cuSPARSE SpGEMM) of the same CSR pairs on the card.
+    Returns (rows, failure or None)."""
+    import torch
+
+    from saena_tpu_torch.amg.galerkin import _spgemm
+    from saena_tpu_torch.ops.spgemm import _use_dense_ring, triple_product
+    from saena_tpu_torch.parallel.comm import Mesh
+
+    t0 = time.perf_counter()
+    R, A, P = galerkin_operands()
+    print(f"  R {R.shape[0]}x{R.shape[1]} nnz {R.nnz}, A nnz {A.nnz}, P nnz {P.nnz} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    RA_h = _spgemm(R, A)
+    Ac_h = _spgemm(RA_h, P)
+    host_s = time.perf_counter() - t0
+    Ac_h.sum_duplicates()
+    Ac_h.sort_indices()
+    scale = abs(Ac_h).max()
+
+    def on_card(X):
+        X = X.tocsr()
+        with warnings.catch_warnings():          # sparse CSR is beta in torch
+            warnings.simplefilter("ignore")
+            return torch.sparse_csr_tensor(
+                torch.from_numpy(X.indptr.astype(np.int64)),
+                torch.from_numpy(X.indices.astype(np.int64)),
+                torch.from_numpy(X.data), size=X.shape, dtype=torch.float64).to(dev)
+
+    lib = {}
+    for name, X, Y in (("R@A", R, A), ("RA@P", RA_h, P)):
+        Xc, Yc = on_card(X), on_card(Y)
+        lib[name] = events_ms(lambda: torch.sparse.mm(Xc, Yc), 5)["median"]
+        del Xc, Yc
+    print("  " + json.dumps({"host_native_s": host_s, "nnz_Ac": int(Ac_h.nnz),
+                             "torch_sparse_mm_ms": lib, "card": card}))
+    rows = []
+    for D in RING_COUNTS:
+        mesh = Mesh(D, dev)
+        route = ["dense" if _use_dense_ring(X, Y, D) else "sparse"
+                 for X, Y in ((R, A), (RA_h, P))]
+        torch.cuda.reset_peak_memory_stats(dev)
+        RA, r1 = ring_product(R, A, mesh, torch.float64, 1e-14)
+        Ac, r2 = ring_product(RA, P, mesh, torch.float64, 1e-14)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Ac2 = triple_product(R, A, P, mesh, dtype=torch.float64)
+        wall = time.perf_counter() - t0
+        err = float(abs(Ac2 - Ac_h).max()) / scale
+        row = {"D": D, "route": route, "triple_product_s": wall,
+               "peak_GB": torch.cuda.max_memory_allocated(dev) / 1e9,
+               "rel_err_vs_host": err, "bit_equal_runs": same_csr(Ac, Ac2),
+               "products": [r1, r2], "card": card}
+        rows.append(row)
+        for r, name in ((r1, "R@A"), (r2, "RA@P")):
+            print("  " + json.dumps(dict(product=name, **r,
+                                         torch_sparse_mm_ms=lib[name], card=card)))
+        print("  " + json.dumps({k: v for k, v in row.items() if k != "products"}))
+        if route != ["sparse", "sparse"]:
+            return rows, f"D = {D}: auto routed the Galerkin products {route}"
+        if not row["bit_equal_runs"]:
+            return rows, f"D = {D}: two runs of triple_product differ"
+        if err > 1e-12:
+            return rows, f"D = {D}: Ac differs from the host product by {err:.3e} of max |Ac|"
+        del RA, Ac, Ac2
+    return rows, None
+
+
+def gemm_sweep(dev, card):
+    """Phase 3l (2): examples/gemm.py's sweep, random_symm_matrix(5000,
+    dens, seed=1) @ (..., seed=2) for dens 0.001, 0.005, 0.01 in f32 and
+    f64 at D = 1 and 4: the ring "auto" picks and its product against
+    scipy (f32 rounding: 8 eps32 x max(|A||B|); f64: 1e-12 x max |C|), the
+    dense ring on prepared operands (median of 20 after 10 warm) beside
+    torch.matmul of the dense 5000^2 product, and the block-sparse ring's
+    numeric phase (one run after a warm one). Returns (rows, failure or
+    None)."""
+    import torch
+
+    from saena_tpu_torch import oracles
+    from saena_tpu_torch.generators import random_symm_matrix
+    from saena_tpu_torch.ops import bspgemm
+    from saena_tpu_torch.ops.spgemm import (_use_dense_ring, matmat, matmat_prepare,
+                                            matmat_run)
+    from saena_tpu_torch.parallel.comm import Mesh
+    from saena_tpu_torch.parallel.partition import equal_row_split
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        return [], "TF32 is on for matrix products"
+    rows = []
+    for dens in SWEEP_DENS:
+        A = random_symm_matrix(SWEEP_N, dens, seed=1)
+        B = random_symm_matrix(SWEEP_N, dens, seed=2)
+        absAB = float(abs(abs(A) @ abs(B)).max())
+        for dname in ("float32", "float64"):
+            dt = getattr(torch, dname)
+            Ad = torch.from_numpy(A.toarray()).to(dev, dt)
+            Bd = torch.from_numpy(B.toarray()).to(dev, dt)
+            dense_ms = events_ms(lambda: torch.matmul(Ad, Bd), SWEEP_REPS,
+                                 SWEEP_WARM)["median"]
+            del Ad, Bd
+            for D in SWEEP_D:
+                mesh = Mesh(D, dev)
+                auto = "dense" if _use_dense_ring(A, B, D) else "sparse"
+                C = matmat(A, B, mesh, dtype=dt)
+                err = oracles.check_matmat(A, B, C)
+                lim = 8 * float(np.finfo(np.float32).eps) * absAB \
+                    if dname == "float32" else 1e-12 * float(abs(C).max())
+                Ab, Bb, _ = matmat_prepare(A, B, mesh, dt)
+                ring = events_ms(lambda: matmat_run(Ab, Bb, mesh), SWEEP_REPS,
+                                 SWEEP_WARM)
+                del Ab, Bb
+                plan = bspgemm._ring_plan(A, B, D, bspgemm.pick_bk(A, B),
+                                          equal_row_split(A.shape[0], D),
+                                          equal_row_split(B.shape[0], D), dt, mesh)
+                sparse = events_ms(lambda: bspgemm._ring_bsp_numeric(plan, mesh), 1)
+                row = {"dens": dens, "dtype": dname, "D": D, "auto": auto,
+                       "check_matmat": err, "bound": lim,
+                       "dense_ring_ms": ring["median"], "dense_ring_min_ms": ring["min"],
+                       "dense_ring_max_ms": ring["max"], "torch_matmul_ms": dense_ms,
+                       "sparse_ring_numeric_ms": sparse["median"],
+                       "sparse_plan_s": plan.seconds["plan"],
+                       "sparse_pairs": plan.pairs, "bk": plan.Ab.shape[-1],
+                       "card": card}
+                del plan
+                rows.append(row)
+                print("  " + json.dumps(row))
+                if not err <= lim:
+                    return rows, (f"dens {dens} {dname} D = {D}: check_matmat {err:.3e} "
+                                  f"> {lim:.3e}")
+    return rows, None
+
+
+def api_and_repairs(dev, card):
+    """Phase 3l (3): AMG.matmat(A, B, mesh=Mesh(4, card)) against
+    AMG.matmat(A, B) on the sweep's density 0.005 pair (1e-12 relative);
+    an EllMatrix with spill (the 48^3 A with ten long rows), two matvecs
+    bit-equal and within 1e-12 of the CPU's; spgemm_blocks of the 48^3 R A,
+    two calls bit-equal and within 1e-12 of the host product. Returns
+    (row, failure or None)."""
+    import torch
+
+    from saena_tpu_torch import AMG, Matrix
+    from saena_tpu_torch.amg.galerkin import _spgemm
+    from saena_tpu_torch.generators import random_symm_matrix
+    from saena_tpu_torch.ops.bspgemm import spgemm_blocks
+    from saena_tpu_torch.ops.formats import ell_from_csr
+    from saena_tpu_torch.parallel.comm import Mesh
+
+    mats = []
+    for seed in (1, 2):
+        X = Matrix()
+        X.set_csr(random_symm_matrix(SWEEP_N, 0.005, seed=seed))
+        X.assemble(device=dev, dtype=torch.float64)
+        mats.append(X)
+    amg = AMG(device=dev, dtype=torch.float64)
+    t0 = time.perf_counter()
+    Cm = amg.matmat(*mats, mesh=Mesh(4, dev)).csr
+    mesh_s = time.perf_counter() - t0
+    Ch = amg.matmat(*mats).csr
+    api_err = float(abs(Cm - Ch).max()) / float(abs(Ch).max())
+
+    A = _poisson_interior(M).tocsr().tolil()
+    rng = np.random.default_rng(7)
+    for r in range(10):
+        A[r, rng.choice(A.shape[1], 200, replace=False)] = rng.standard_normal(200)
+    A = A.tocsr()
+    E = ell_from_csr(A, torch.float64, dev, width_quantile=0.98)
+    x = torch.tensor(rng.standard_normal(E.n_pad), dtype=torch.float64, device=dev)
+    y1, y2 = E.matvec(x), E.matvec(x)
+    y_cpu = ell_from_csr(A, torch.float64, "cpu", width_quantile=0.98).matvec(x.cpu())
+    ell_err = float((y1.cpu() - y_cpu).abs().max() / y_cpu.abs().max())
+
+    R, A0, _ = galerkin_operands()
+    t0 = time.perf_counter()
+    S1 = spgemm_blocks(R, A0, device=dev)
+    blocks_s = time.perf_counter() - t0
+    S2 = spgemm_blocks(R, A0, device=dev)
+    ref = _spgemm(R, A0)
+    sb_err = float(abs(S1 - ref).max()) / float(abs(ref).max())
+    row = {"api_mesh_vs_host_rel": api_err, "api_mesh_s": mesh_s,
+           "ell_spill": int(E.spill_rows.numel()), "ell_bit_equal": bool(torch.equal(y1, y2)),
+           "ell_vs_cpu_rel": ell_err, "spgemm_blocks_bit_equal": same_csr(S1, S2),
+           "spgemm_blocks_vs_host_rel": sb_err, "spgemm_blocks_s": blocks_s, "card": card}
+    print("  " + json.dumps(row))
+    bad = None
+    if api_err > 1e-12:
+        bad = f"AMG.matmat on a mesh differs from the host product by {api_err:.3e}"
+    elif not (row["ell_spill"] and row["ell_bit_equal"]) or ell_err > 1e-12:
+        bad = f"EllMatrix spill: {row}"
+    elif not row["spgemm_blocks_bit_equal"] or sb_err > 1e-12:
+        bad = f"spgemm_blocks: {row}"
+    return row, bad
+
+
 # ---------------------------------------------------------- phase 4: times --
 
 
@@ -2525,8 +2834,28 @@ def main() -> int:
     if min(launches_k["dia_spmv/rect"], launches_k["strip8_spmv/shard"]) <= 0:
         return fail("K1 in rectangular mode or K3 on a shard never launched on the "
                     "sharded path")
+    print(f"[3l] the products over a mesh (ops/spgemm.py, ops/bspgemm.py's ring): the "
+          f"{M}^3 Galerkin product on {', '.join(map(str, RING_COUNTS))} shards of the "
+          f"card against the host product; examples/gemm.py's sweep; AMG.matmat(mesh=); "
+          f"the fixed-order ELL spill and block sums; {card}")
+    t0 = time.perf_counter()
+    zero()
+    _, bad = galerkin_on_mesh(dev, card)
+    if bad:
+        return fail(f"Galerkin product on a mesh: {bad}")
+    _, bad = gemm_sweep(dev, card)
+    if bad:
+        return fail(f"gemm sweep: {bad}")
+    _, bad = api_and_repairs(dev, card)
+    if bad:
+        return fail(f"matmat(mesh=) and the repairs: {bad}")
+    launches_l, bad_count = read()
+    if bad_count:
+        return fail(f"products over a mesh: {bad_count}")
+    print(f"[3l] launches (the products run no kernel of the port): {launches_l}; "
+          f"wall {time.perf_counter() - t0:.1f} s")
     for extra in (launches_d, launches_e, launches_f, launches_g, launches_h,
-                  launches_i, launches_j, launches_k):
+                  launches_i, launches_j, launches_k, launches_l):
         launches = {k: launches[k] + extra[k] for k in launches}
     print(f"[3] launches on the main path: {launches}")
     # every kernel, both paths of K2 and K3 (either strip8 mode will do), K1

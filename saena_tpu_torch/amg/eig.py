@@ -1,17 +1,21 @@
-"""Largest-eigenvalue estimation for the Chebyshev smoother (host).
+"""Largest-eigenvalue estimation for the Chebyshev smoother.
 
 lambda_max(D^{-1} A) with the reference's 1.0001 safety factor (ref
 find_eig_lamlan, lamlan_saena.h:13-79), by Lanczos on the similar symmetric
-form D^{-1/2} A D^{-1/2}, its matvecs in native code (_native/strength.cpp,
-scipy's per-row accumulation order) or scipy without a toolchain.
+form D^{-1/2} A D^{-1/2} on the host, its matvecs in native code
+(_native/strength.cpp, scipy's per-row accumulation order) or scipy without
+a toolchain; ``eig_max_invdiag_device`` is a power iteration over a matvec
+closure on the device.
 """
 from __future__ import annotations
 
 import numpy as np
 import scipy.linalg as sla
 import scipy.sparse as sp
+import torch
 
 from saena_tpu_torch import _native
+from saena_tpu_torch.runtime import resolve_device
 
 SAFETY = 1.0001
 
@@ -179,3 +183,21 @@ def _power_iteration_host(S, iters: int = 100, tol: float = 1e-5) -> float:
             break
         lam = lam_new
     return lam
+
+
+def eig_max_invdiag_device(matvec, inv_diag: torch.Tensor, n_pad: int, dtype,
+                           iters: int = 60, seed: int = 0,
+                           device=None) -> torch.Tensor:
+    """Power iteration for lambda_max(D^{-1} A) with only a matvec closure
+    (the JAX package's, for a matvec under jit or over a mesh): ``iters``
+    steps from a normal start vector drawn by a ``torch.Generator`` seeded
+    with ``seed`` (on the CPU, then moved to ``device``, the card unless
+    named), the Rayleigh quotient times SAFETY. Returns a 0-d tensor."""
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    v = torch.randn(n_pad, generator=gen, dtype=dtype).to(device)
+    for _ in range(iters):
+        w = inv_diag * matvec(v)
+        v = w / torch.linalg.vector_norm(w)
+    w = inv_diag * matvec(v)
+    return torch.dot(v, w) / torch.dot(v, v) * SAFETY

@@ -357,16 +357,24 @@ class AMG:
 
     def matmat(self, A: Matrix, B: Matrix, mesh=None, mode: str = "auto",
                dtype=None) -> Matrix:
-        """The product A B (ref saena::amg::matmat, saena.cpp:~930): the
-        host scipy product, assembled on this AMG's device at ``dtype``
-        (this AMG's unless named). The device rings of a mesh (``mesh``,
-        ``mode``) are not ported yet and raise."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "matmat on a device mesh (ops/spgemm.py's rings) is not ported yet")
+        """The product A B (ref saena::amg::matmat, saena.cpp:~930 ->
+        setup_matmat.cpp:1164-1487), assembled on this AMG's device at
+        ``dtype`` (this AMG's unless named).
+
+        With ``mesh`` (a ``parallel.comm.Mesh``) the product runs on the
+        mesh's rings at ``dtype``: the dense ring or the block-sparse ring,
+        picked by operand density like the reference's matmat_thre1 switch
+        (``mode`` forces "dense" / "sparse"; ops/spgemm.matmat). Without a
+        mesh it is the host scipy product."""
+        dt = dtype or self.dtype
         C = Matrix()
-        C.set_csr((A.csr @ B.csr).tocsr())
-        C.assemble(device=self.device, dtype=dtype or self.dtype)
+        if mesh is not None:
+            from saena_tpu_torch.ops.spgemm import matmat as device_matmat
+
+            C.set_csr(device_matmat(A.csr, B.csr, mesh, dtype=dt, mode=mode).tocsr())
+        else:
+            C.set_csr((A.csr @ B.csr).tocsr())
+        C.assemble(device=self.device, dtype=dt)
         return C
 
     # ---- profiling (ref profile_matvecs, print_vcycle_time,

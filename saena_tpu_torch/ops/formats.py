@@ -4,7 +4,8 @@ The formats keep the layouts of saena_tpu/ops/formats.py, so the two
 packages can be compared array for array:
 
 - ``EllMatrix``: slot-major ELLPACK, cols/vals ``(width, n_pad)``; rows
-  longer than ``width`` spill to a COO tail that is scatter-added.
+  longer than ``width`` spill to a COO tail, summed row by row in a fixed
+  order (``spill_segments``) and added once to each row.
 - ``DiaMatrix``: diagonal storage ``(ndiag, n_pad)`` for stencil matrices;
   its matvec and fused smoother update are the DIA kernel (ops/dia_spmv.py).
 - ``DenseMatrix``: coarse levels switch to dense (ref
@@ -19,8 +20,10 @@ padded to ``pad_to(n)`` (a multiple of 128) with zeros, and every operator
 preserves the zero padding, so the solve path never slices.
 
 Each format holds tensors on one explicit device. ELL is plain PyTorch (an
-``index_select`` gather and a sum); its spill uses ``index_add_``, which on
-the card adds with atomics in no fixed order.
+``index_select`` gather and a sum); its spill is summed per row in the
+order of the triples, so two matvecs on the card give equal bits (a
+scatter of the triples would add a row's entries with atomics in no fixed
+order).
 
 ``device_matrix_from_csr`` takes the JAX package's CPU branch for a CPU
 target and its accelerator branch for a CUDA target (or when the caller
@@ -95,15 +98,52 @@ def int8_to_device(arr, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.int8)).to(device)
 
 
+def spill_segments(rows: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Row groups of COO spill triples, so that each row's entries can be
+    summed in a fixed order and the sum added once to the row. rows (k, S)
+    -> (seg_rows (k, U), seg_idx (k, U, W)), int64: seg_idx[d, u] lists, in
+    their order, the triples of row seg_rows[d, u], padded with S (a zero
+    appended to the products); a group with fewer rows pads seg_rows with
+    row 0 and an all-padding list."""
+    k, S = rows.shape
+    groups = [np.unique(r, return_inverse=True, return_counts=True) for r in rows]
+    U = max(g[0].size for g in groups)
+    W = max(int(g[2].max()) for g in groups)
+    seg_rows = np.zeros((k, U), dtype=np.int64)
+    seg_idx = np.full((k, U, W), S, dtype=np.int64)
+    for d, (u, inv, cnt) in enumerate(groups):
+        order = np.argsort(inv, kind="stable")
+        seg_rows[d, : u.size] = u
+        slot = np.arange(S) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+        seg_idx[d, inv[order], slot] = order
+    return seg_rows, seg_idx
+
+
+def spill_sums(prod: torch.Tensor, seg_idx: torch.Tensor) -> torch.Tensor:
+    """Per-row sums of spill products (..., S) in the order of
+    ``spill_segments``' lists: (..., U)."""
+    pad = torch.nn.functional.pad(prod, (0, 1))
+    if pad.dim() == 1:
+        return pad[seg_idx].sum(-1)
+    k = seg_idx.shape[0]
+    return torch.gather(pad, 1, seg_idx.reshape(k, -1)).reshape(seg_idx.shape).sum(-1)
+
+
 class EllMatrix:
     """Hybrid slot-major ELLPACK. cols/vals: (width, n_pad); padding slots
     have col=0, val=0. The spill triples hold the entries of rows whose nnz
-    exceeds width."""
+    exceeds width; ``seg`` their row groups (``spill_segments``) on the
+    device, or None without spill."""
 
     def __init__(self, cols, vals, spill_rows, spill_cols, spill_vals, shape, nnz):
         self.cols, self.vals = cols, vals
         self.spill_rows, self.spill_cols, self.spill_vals = spill_rows, spill_cols, spill_vals
         self.shape, self.nnz = tuple(shape), int(nnz)
+        self.seg = None
+        if spill_rows.numel():
+            seg_rows, seg_idx = spill_segments(spill_rows.cpu().numpy()[None])
+            self.seg = (torch.from_numpy(seg_rows[0]).to(spill_rows.device),
+                        torch.from_numpy(seg_idx[0]).to(spill_rows.device))
 
     @property
     def dtype(self):
@@ -122,9 +162,11 @@ class EllMatrix:
         x = x.to(self.dtype)
         gathered = x.index_select(0, self.cols.reshape(-1)).view(self.cols.shape)
         y = (self.vals * gathered).sum(0)
-        if self.spill_rows.numel():
-            y.index_add_(0, self.spill_rows,
-                         self.spill_vals * x.index_select(0, self.spill_cols))
+        if self.seg is not None:
+            seg_rows, seg_idx = self.seg
+            prod = self.spill_vals * x.index_select(0, self.spill_cols)
+            # distinct rows: each gets one add
+            y.index_add_(0, seg_rows, spill_sums(prod, seg_idx))
         return y
 
 

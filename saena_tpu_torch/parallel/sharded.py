@@ -63,6 +63,8 @@ from saena_tpu_torch.ops.formats import (
     GATHER_MAX_BYTES_PER_NNZ,
     dia_offsets_of,
     pad_to,
+    spill_segments,
+    spill_sums,
     to_device,
 )
 from saena_tpu_torch.parallel.comm import Mesh, make_mesh  # noqa: F401 (the JAX module has make_mesh)
@@ -124,24 +126,11 @@ class ShardedEll:
 
     def __post_init__(self):
         # the spill summed row by row in a fixed order, then added once to
-        # each row: a scatter of the triples would add a row's entries with
-        # atomics in no fixed order on the card. seg_idx[d, u] lists the
-        # spill entries of row seg_rows[d, u] (S: a zero appended)
+        # each row (formats.spill_segments): a scatter of the triples would
+        # add a row's entries with atomics in no fixed order on the card
         seg = None
         if self.spill_rows is not None and self.spill_rows.shape[-1]:
-            rows = self.spill_rows.cpu().numpy()
-            k, S = rows.shape
-            groups = [np.unique(r, return_inverse=True, return_counts=True)
-                      for r in rows]
-            U = max(g[0].size for g in groups)
-            Wd = max(int(g[2].max()) for g in groups)
-            seg_rows = np.zeros((k, U), dtype=np.int64)
-            seg_idx = np.full((k, U, Wd), S, dtype=np.int64)
-            for d, (u, inv, cnt) in enumerate(groups):
-                order = np.argsort(inv, kind="stable")
-                seg_rows[d, : u.size] = u
-                slot = np.arange(S) - np.repeat(np.cumsum(cnt) - cnt, cnt)
-                seg_idx[d, inv[order], slot] = order
+            seg_rows, seg_idx = spill_segments(self.spill_rows.cpu().numpy())
             dev = self.spill_rows.device
             seg = (torch.from_numpy(seg_rows).to(dev), torch.from_numpy(seg_idx).to(dev))
         object.__setattr__(self, "_seg", seg)
@@ -169,9 +158,7 @@ class ShardedEll:
         if self._seg is not None:
             seg_rows, seg_idx = self._seg
             prod = self.spill_vals * _gather(ext, self.spill_cols)
-            prod = torch.nn.functional.pad(prod, (0, 1))
-            part = _gather(prod, seg_idx).sum(-1)
-            y.scatter_add_(1, seg_rows, part)
+            y.scatter_add_(1, seg_rows, spill_sums(prod, seg_idx))
         if self.reduce_rows:
             y = self.mesh.psum(y)
         return y

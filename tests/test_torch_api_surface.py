@@ -2,7 +2,8 @@
 inputs (f64, CPU): Vector, the matrix readers and writers, the Nektar++
 session reader, the scipy oracles, the Options loaders, the Matrix and AMG
 methods (assemble's argument order, duplicates, file I/O, the setters,
-matmat, destroy, p_order stored and p_levels) and the generators and COO helpers
+matmat on the host and on a mesh's rings, destroy, p_order stored and
+p_levels) and the generators and COO helpers
 the port gained. Host arrays must agree exactly: these are the same numpy
 and scipy code in both packages. Solves through a Vector rhs agree with
 an array rhs bit for bit.
@@ -201,8 +202,17 @@ def test_matmat_matches_saena_tpu():
         jm.append(X)
     _same_csr(C.csr, J.AMG().matmat(*jm).csr)
     assert C.get_internal_matrix().device.type == "cpu"
-    with pytest.raises(NotImplementedError):
-        t.matmat(*mats, mesh=object())
+    # on a mesh: the rings, dense and block-sparse, against saena_tpu's on
+    # the conftest's 8-device JAX CPU mesh
+    from saena_tpu.parallel.sharded import make_mesh
+    from saena_tpu_torch.parallel.comm import Mesh
+
+    for mode in ("dense", "sparse"):
+        Cm = t.matmat(*mats, mesh=Mesh(8, "cpu"), mode=mode)
+        Cj = J.AMG().matmat(*jm, mesh=make_mesh(8), mode=mode).csr
+        assert Cm.get_internal_matrix().device.type == "cpu"
+        assert Cm.csr.shape == Cj.shape
+        assert abs(Cm.csr - Cj).max() <= 1e-12 * max(1.0, abs(Cj).max()), mode
 
 
 def test_options_loaders_match_saena_tpu(tmp_path):

@@ -13,7 +13,7 @@ f64 on the CPU.
   not shard.
 
 Card (marker ``cuda``, skipped without one): the numeric phase on the card
-(index_add_ with atomics: sums in no fixed order) against the CPU within
+(its block sums in a fixed order, as on the CPU) against the CPU within
 1e-12 relative.
 """
 import numpy as np

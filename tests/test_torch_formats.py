@@ -85,6 +85,41 @@ def test_ell_spill_is_exercised():
     assert T.spill_rows.numel() > 0
 
 
+def test_ell_spill_sums_in_a_fixed_order():
+    """The spill's row groups list every triple once, in its order, under
+    its row; the matvec gives saena_tpu's to 1e-12 and two give equal bits."""
+    A = _skewed()
+    T = tf.ell_from_csr(A, torch.float64, "cpu", width_quantile=0.98)
+    J = jf.ell_from_csr(A, dtype=jnp.float64, width_quantile=0.98)
+    rows = T.spill_rows.numpy()
+    seg_rows, seg_idx = (t.numpy() for t in T.seg)
+    S = rows.size
+    assert np.unique(seg_rows).size == seg_rows.size
+    listed = seg_idx[seg_idx < S]
+    assert np.array_equal(np.sort(listed), np.arange(S))
+    for u, lst in zip(seg_rows, seg_idx):
+        lst = lst[lst < S]
+        assert (rows[lst] == u).all() and (np.diff(lst) > 0).all()
+    assert T.seg[1].shape[1] >= 2                # some row spills several
+    x = _x(A.shape[1], seed=4)
+    y = T.matvec(torch.from_numpy(x))
+    _close(y, J.matvec(jnp.asarray(x)))
+    assert torch.equal(y, T.matvec(torch.from_numpy(x)))
+
+
+@pytest.mark.cuda
+def test_cuda_ell_spill_matvecs_are_bit_equal():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    A = _skewed()
+    T = tf.ell_from_csr(A, torch.float64, "cuda", width_quantile=0.98)
+    x = torch.from_numpy(_x(A.shape[1], seed=4)).cuda()
+    y = T.matvec(x)
+    assert torch.equal(y, T.matvec(x))
+    _close(y.cpu(), tf.ell_from_csr(A, torch.float64, "cpu", width_quantile=0.98)
+           .matvec(x.cpu()))
+
+
 @pytest.mark.parametrize("name", ["poisson8", "band500"])
 def test_dia_from_csr_same_arrays(name):
     A = MATRICES[name]()

@@ -32,6 +32,7 @@ def test_import_loads_no_jax_and_no_saena_tpu():
             "saena_tpu_torch.oracles, saena_tpu_torch.io.readers, "
             "saena_tpu_torch.io.nektar, saena_tpu_torch.config, "
             "saena_tpu_torch.amg.pcoarsen, saena_tpu_torch.ops.bspgemm, "
+            "saena_tpu_torch.ops.spgemm, "
             "saena_tpu_torch.parallel.comm, saena_tpu_torch.parallel.halo, "
             "saena_tpu_torch.parallel.sharded, saena_tpu_torch.parallel.multihost\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
