@@ -84,7 +84,7 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
        torch.profiler trace (written to chiprun_out/traces/). Then pCG with
        direct_solver="CG" (the coarsest CG inside the graph) against the CPU
        twin, the profiles of the f32 hierarchy (profile_matvecs,
-       model_check, vcycle_breakdown per level, pcg_profile), and a capture
+       vcycle_breakdown per level, pcg_profile), and a capture
        with a host copy, which must raise GraphCaptureError naming the op
        while the card works on.
    (g) FGMRES(30) for 30 steps without a preconditioner and pFGMRES to
@@ -1141,8 +1141,8 @@ def capture_failure(dev):
 
 
 def profiles(solver):
-    """profile_matvecs, model_check, vcycle_breakdown(per_level=True) and
-    pcg_profile of the solver's hierarchy (20 calls a timing)."""
+    """profile_matvecs, vcycle_breakdown(per_level=True) and pcg_profile of
+    the solver's hierarchy (20 calls a timing)."""
     from saena_tpu_torch import profiling as P
 
     H = solver.hierarchy
@@ -1150,7 +1150,6 @@ def profiles(solver):
     rhs[: H.n] = 1.0
     bd = P.vcycle_breakdown(H, solver.params, rhs, n_iter=20, per_level=True)
     out = {"profile_matvecs": P.profile_matvecs(H, n_iter=20),
-           "model_check": P.model_check(H, n_iter=20),
            "vcycle_breakdown": bd,
            "pcg_profile": P.pcg_profile(H, solver.params, n_iter=20)}
     for k, v in out.items():

@@ -20,6 +20,11 @@ run and replayed after; on the CPU the same parts are called directly. A capture
 that fails raises ``GraphCaptureError`` naming the op that broke it; there
 is no fallback to the uncaptured loop.
 
+While a torch profiler records, ``run`` marks its host work with spans
+(runtime.span): ``saena.graph.capture``, each replay (or direct call) of a
+part as ``saena.graph.init`` / ``.step`` / ``.restart`` / ``.fini``, and
+each read of ``go`` as ``saena.graph.go``.
+
 The kernels' wrappers count their launches in Python, which a replay does
 not run. Each graph keeps the counts its capture added, the counters are
 put back, and every replay adds them again, so the counts are those of the
@@ -35,7 +40,8 @@ import types
 
 import torch
 
-from saena_tpu_torch.ops import dia_spmv, strip8_spmv, strip_spmv
+from saena_tpu_torch.ops import cuda_build, dia_spmv, strip8_spmv, strip_spmv
+from saena_tpu_torch.runtime import span
 
 # the wrappers' launch counters: (module, integer counters); the DIA
 # wrapper's launches by shape are a dict, dia_spmv.shape_launches
@@ -143,7 +149,8 @@ class Loop:
     """A solver's state (``s``, static tensors) and its three parts, and
     optionally a fourth, ``restart``; see the module docstring.
     ``capture_ms`` is the wall time of the first run's warm-up and captures
-    on the card, None before them."""
+    on the card, None before them. The kernels' build, which the first
+    warm-up of a checkout runs, is left out of it (``cuda_build.build_s``)."""
 
     def __init__(self, state: types.SimpleNamespace, init, step, fini,
                  name: str, restart=None):
@@ -158,7 +165,7 @@ class Loop:
         library handles), then capture it. The warm-up runs on the static
         state, which the first replay of ``init`` sets anew; its launches
         are taken off the counters."""
-        t0 = time.perf_counter()
+        t0, built0 = time.perf_counter(), cuda_build.build_s
         dev = torch.cuda.current_device()
         before = counts()
         side = torch.cuda.Stream(dev)
@@ -171,23 +178,33 @@ class Loop:
         self.graphs = tuple(Graph(p, f"{self.name} {w}") for p, w in
                             zip(self.parts, ("init", "step", "fini", "restart")))
         torch.cuda.synchronize(dev)
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        built = cuda_build.build_s - built0
+        self.capture_ms = (time.perf_counter() - t0 - built) * 1e3
 
     def run(self, graphs: bool) -> int:
         """Run the loop from the current ``rhs`` and ``tol`` buffers, as
         graph replays when ``graphs``; returns the iterations taken."""
         if graphs and self.graphs is None:
-            self._capture()
+            with span("saena.graph.capture"):
+                self._capture()
         init, step, fini, *restart = self.graphs if graphs else self.parts
-        init()
+        with span("saena.graph.init"):
+            init()
         iters = 0
-        while go := int(self.s.go):     # the iteration's host sync
+        while True:
+            with span("saena.graph.go"):
+                go = int(self.s.go)     # the iteration's host sync
+            if not go:
+                break
             if go == RESTART:
-                restart[0]()
+                with span("saena.graph.restart"):
+                    restart[0]()
                 continue
-            step()
+            with span("saena.graph.step"):
+                step()
             iters += 1
-        fini()
+        with span("saena.graph.fini"):
+            fini()
         return iters
 
 

@@ -239,6 +239,9 @@ class SetupInfo:
     # per-phase setup seconds (phases overlap across threads, so the sum
     # may exceed the "wall" entry) and, apart from them, the bytes uploaded
     phases: dict = dataclasses.field(default_factory=dict, repr=False)
+    # each phase interval, (name, start_s, end_s, thread_id) on
+    # time.perf_counter (runtime.PhaseTimer.spans)
+    phase_spans: list = dataclasses.field(default_factory=list, repr=False)
     upload_bytes: int = 0
     comm: object = None   # CommMeter when built by parallel/dist_setup.py
     n_shards: int = 0     # shard count of the setup that built this
@@ -477,6 +480,7 @@ def setup(
         exe.shutdown(wait=True, cancel_futures=True)
     timer.add("wall", time.perf_counter() - t_wall0)
     info.phases = timer.seconds
+    info.phase_spans = timer.spans
     info.upload_bytes = timer.upload_bytes
     info.thetas = thetas + [None]
     info.coarsen_kinds = kinds + ["-"]
@@ -671,6 +675,7 @@ def devicify(
     hierarchy = Hierarchy(levels=tuple(levels), coarse_lu=coarse_lu,
                           inv_sq_diag=inv_sq_diag)
     info.phases = timer.seconds
+    info.phase_spans = timer.spans
     info.upload_bytes = timer.upload_bytes
     return hierarchy, info
 
@@ -747,22 +752,22 @@ def _level_task(l, is_coarsest, csr_levels, Ps, Rs, structs, opts, dtype,
 
     P_dev = R_dev = None
     if not is_coarsest and not skip_transfers:
-        t0 = time.perf_counter()
-        dt_next = low_dtype if (opts.float_storage
-                                and (l + 1) >= opts.float_level) else dtype
-        struct = structs[l] if structs else None
-        force = opts.structural_transfers == "force"
-        if struct is not None and (force or accelerator_branch(device)):
-            agg, wq = struct
-            n_c = csr_levels[l + 1].shape[0]
-            if force or _structural_wins(l, agg, n_c, Adev, Ps, Rs, dt, dt_next):
-                P_dev, R_dev = build_structural(
-                    agg, n_c, wq, Adev, int(Ps[l].nnz), dt, dt_next, device,
-                    timer=timer)
-        if P_dev is None:
-            P_dev = _transfer_from_csr(Ps[l], dt_next, device, timer)
-            R_dev = _transfer_from_csr(Rs[l], dt_next, device, timer)
-        timer.add("devicify_PR", time.perf_counter() - t0)
+        with timer.phase("devicify_PR"):
+            dt_next = low_dtype if (opts.float_storage
+                                    and (l + 1) >= opts.float_level) else dtype
+            struct = structs[l] if structs else None
+            force = opts.structural_transfers == "force"
+            if struct is not None and (force or accelerator_branch(device)):
+                agg, wq = struct
+                n_c = csr_levels[l + 1].shape[0]
+                if force or _structural_wins(l, agg, n_c, Adev, Ps, Rs, dt,
+                                             dt_next):
+                    P_dev, R_dev = build_structural(
+                        agg, n_c, wq, Adev, int(Ps[l].nnz), dt, dt_next,
+                        device, timer=timer)
+            if P_dev is None:
+                P_dev = _transfer_from_csr(Ps[l], dt_next, device, timer)
+                R_dev = _transfer_from_csr(Rs[l], dt_next, device, timer)
 
     # inv_diag carries the VECTOR dtype: smoother arithmetic stays at full
     # precision while a float_storage operator's matvec runs reduced

@@ -34,6 +34,7 @@ from saena_tpu_torch.amg import graphs as _g
 from saena_tpu_torch.amg.cycles import vcycle
 from saena_tpu_torch.amg.hierarchy import Hierarchy, SolveParams
 from saena_tpu_torch.amg.smoothers import smooth
+from saena_tpu_torch.runtime import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,19 +241,22 @@ def _solve(build, hierarchy: Hierarchy, rhs, params=None, tol: float = 1e-8,
     compare the graphs with). The result's tensors are copies, not the
     loop's buffers."""
     params = params or SolveParams()
-    rhs = _prep_rhs(hierarchy, rhs)
-    loop = _loop(build, hierarchy, params, max_iter, rhs, **kw)
-    s = loop.s
-    s.rhs.copy_(rhs)
-    s.tol.fill_(tol)
+    with span("saena.api.upload"):
+        rhs = _prep_rhs(hierarchy, rhs)
+        loop = _loop(build, hierarchy, params, max_iter, rhs, **kw)
+        s = loop.s
+        s.rhs.copy_(rhs)
+        s.tol.fill_(tol)
     if graphs is None:
         graphs = hierarchy.device.type == "cuda"
     iters = loop.run(graphs)
-    res = SolveResult(u=s.u.clone(), iters=iters, init_res=s.init_res.clone(),
-                      final_res=s.final_res.clone(),
-                      history=s.hist.to(s.rhs.dtype, copy=True),
-                      true_res=s.true_res.clone())
-    return _finalize(hierarchy, res)
+    with span("saena.api.download"):
+        res = SolveResult(u=s.u.clone(), iters=iters,
+                          init_res=s.init_res.clone(),
+                          final_res=s.final_res.clone(),
+                          history=s.hist.to(s.rhs.dtype, copy=True),
+                          true_res=s.true_res.clone())
+        return _finalize(hierarchy, res)
 
 
 def solve_pCG(hierarchy: Hierarchy, rhs, params=None, tol: float = 1e-8,

@@ -30,7 +30,7 @@ from saena_tpu_torch.core.coo import CooBuilder, remove_boundary_nodes
 from saena_tpu_torch.io.readers import read_matrix, write_bin, write_mtx
 from saena_tpu_torch.ops.formats import device_matrix_from_csr, pad_to
 from saena_tpu_torch.parallel.dist_setup import dist_setup
-from saena_tpu_torch.runtime import resolve_device, resolve_dtype
+from saena_tpu_torch.runtime import resolve_device, resolve_dtype, span
 from saena_tpu_torch.vector import SaenaVector as Vector
 
 
@@ -173,22 +173,23 @@ class AMG:
         read."""
         if opts is not None:
             self.opts = opts
-        csr = A.csr
-        self._bound = None
-        if self.opts.remove_boundary:
-            Ai, interior, bound, bound_diag, _ = remove_boundary_nodes(csr)
-            if bound.size:
-                self._bound = (interior, bound, bound_diag, csr.shape[0])
-                csr = Ai
-        if self.opts.setup_shards:
-            self.hierarchy, self.info = dist_setup(
-                csr, self.opts, dtype=self.dtype, device=self.device,
-                n_shards=max(self.opts.setup_shards, 0),
-                use_dense=A._use_dense, p_levels=p_levels)
-        else:
-            self.hierarchy, self.info = _hier.setup(
-                csr, self.opts, dtype=self.dtype, device=self.device,
-                use_dense=A._use_dense, p_levels=p_levels)
+        with span("saena.set_matrix"):
+            csr = A.csr
+            self._bound = None
+            if self.opts.remove_boundary:
+                Ai, interior, bound, bound_diag, _ = remove_boundary_nodes(csr)
+                if bound.size:
+                    self._bound = (interior, bound, bound_diag, csr.shape[0])
+                    csr = Ai
+            if self.opts.setup_shards:
+                self.hierarchy, self.info = dist_setup(
+                    csr, self.opts, dtype=self.dtype, device=self.device,
+                    n_shards=max(self.opts.setup_shards, 0),
+                    use_dense=A._use_dense, p_levels=p_levels)
+            else:
+                self.hierarchy, self.info = _hier.setup(
+                    csr, self.opts, dtype=self.dtype, device=self.device,
+                    use_dense=A._use_dense, p_levels=p_levels)
         self.params = _hier.SolveParams.from_options(self.opts)
         if self.opts.verbose or self.verbose:
             print(self.info.table())
@@ -205,29 +206,36 @@ class AMG:
         return self
 
     # ---- solves: each returns (u, SolveResult), u the host solution of the
-    # full system (boundary rows merged back when they were removed) ----
+    # full system (boundary rows merged back when they were removed). Under
+    # a torch profiler a solve is the span saena.solve, its host rhs work
+    # saena.api.rhs, the copy of u to the host saena.api.download and the
+    # boundary merge saena.api.merge ----
 
     def _run(self, fn, **kw):
         if self.hierarchy is None or self._rhs is None:
             raise ValueError("set_matrix() and set_rhs() first")
-        rhs = self._rhs
-        if self.opts.debug and not np.isfinite(rhs).all():
-            raise FloatingPointError("rhs contains NaN/Inf")
-        if self._bound is not None:
-            interior, bound, bound_diag, n_full = self._bound
-            bound_sol = rhs[bound] / bound_diag
-            rhs = rhs[interior]
-        n = self.hierarchy.n
-        rhs_p = np.pad(rhs, (0, self.hierarchy.n_pad - n))
-        res = fn(self.hierarchy, rhs_p, params=self.params,
-                 tol=kw.pop("tol", self.opts.tol),
-                 max_iter=kw.pop("max_iter", self.opts.max_iter), **kw)
-        u = res.u[:n].cpu().numpy().astype(np.float64)
-        if self._bound is not None:
-            full = np.zeros(n_full)
-            full[interior] = u
-            full[bound] = bound_sol  # ref add_boundary_sol, saena_object.cpp:753
-            u = full
+        with span("saena.solve"):
+            with span("saena.api.rhs"):
+                rhs = self._rhs
+                if self.opts.debug and not np.isfinite(rhs).all():
+                    raise FloatingPointError("rhs contains NaN/Inf")
+                if self._bound is not None:
+                    interior, bound, bound_diag, n_full = self._bound
+                    bound_sol = rhs[bound] / bound_diag
+                    rhs = rhs[interior]
+                n = self.hierarchy.n
+                rhs_p = np.pad(rhs, (0, self.hierarchy.n_pad - n))
+            res = fn(self.hierarchy, rhs_p, params=self.params,
+                     tol=kw.pop("tol", self.opts.tol),
+                     max_iter=kw.pop("max_iter", self.opts.max_iter), **kw)
+            with span("saena.api.download"):
+                u = res.u[:n].cpu().numpy().astype(np.float64)
+            if self._bound is not None:
+                with span("saena.api.merge"):
+                    full = np.zeros(n_full)
+                    full[interior] = u
+                    full[bound] = bound_sol  # ref add_boundary_sol, saena_object.cpp:753
+                    u = full
         if self.opts.debug and not np.isfinite(u).all():
             raise FloatingPointError(
                 f"solution contains NaN/Inf after {res.iters} iterations "
@@ -279,27 +287,33 @@ class AMG:
             raise NotImplementedError(
                 "lazy updates of a hierarchy built with Options(scale=True)")
 
+    # Under a torch profiler an update is the span saena.update and each
+    # level's Galerkin product in it saena.update.galerkin.
+
     def update1(self, A_new: Matrix) -> "AMG":
         """Replace only the finest level's values (same pattern)."""
         self._check_updatable()
-        old = self._snapshot()
-        self.info.csr_levels[0] = self._strip_boundary(A_new.csr)
-        self._redevicify(old)
+        with span("saena.update"):
+            old = self._snapshot()
+            self.info.csr_levels[0] = self._strip_boundary(A_new.csr)
+            self._redevicify(old)
         return self
 
     def update2(self, A_new: Matrix) -> "AMG":
         """Recompute every coarse operator through the existing P/R."""
         self._check_updatable()
-        old = self._snapshot()
-        levels = [self._strip_boundary(A_new.csr)]
-        for l, (P, R) in enumerate(zip(self.info.Ps, self.info.Rs)):
-            Ac = galerkin_product(R, levels[-1], P)
-            thre = filter_threshold(l + 1, self.opts.filter_thre,
-                                    self.opts.filter_max, self.opts.filter_start,
-                                    self.opts.filter_rate)
-            levels.append(filter_lump(Ac, thre))
-        self.info.csr_levels = levels
-        self._redevicify(old)
+        with span("saena.update"):
+            old = self._snapshot()
+            levels = [self._strip_boundary(A_new.csr)]
+            for l, (P, R) in enumerate(zip(self.info.Ps, self.info.Rs)):
+                with span("saena.update.galerkin"):
+                    Ac = galerkin_product(R, levels[-1], P)
+                    thre = filter_threshold(
+                        l + 1, self.opts.filter_thre, self.opts.filter_max,
+                        self.opts.filter_start, self.opts.filter_rate)
+                    levels.append(filter_lump(Ac, thre))
+            self.info.csr_levels = levels
+            self._redevicify(old)
         return self
 
     def update3(self, A_new: Matrix) -> "AMG":
@@ -310,26 +324,28 @@ class AMG:
         diff holds more than 25% of A's nonzeros. As in the reference, the
         per-level filter is not applied again to the propagated diff."""
         self._check_updatable()
-        snap = self._snapshot()
-        old = self.info.csr_levels[0]
-        csr = self._strip_boundary(A_new.csr)
-        if old.shape != csr.shape:
-            return self.update2(A_new)
-        D = (csr - old).tocsr()
-        D.eliminate_zeros()
-        if D.nnz == 0:
-            return self
-        if D.nnz > 0.25 * max(1, csr.nnz):
-            return self.update2(A_new)
-        levels = [csr]
-        for P, R, Ac_old in zip(self.info.Ps, self.info.Rs,
-                                self.info.csr_levels[1:]):
-            D = (R @ D @ P).tocsr()
-            Ac = (Ac_old + D).tocsr()
-            Ac.sort_indices()
-            levels.append(Ac)
-        self.info.csr_levels = levels
-        self._redevicify(snap)
+        with span("saena.update"):
+            snap = self._snapshot()
+            old = self.info.csr_levels[0]
+            csr = self._strip_boundary(A_new.csr)
+            if old.shape != csr.shape:
+                return self.update2(A_new)
+            D = (csr - old).tocsr()
+            D.eliminate_zeros()
+            if D.nnz == 0:
+                return self
+            if D.nnz > 0.25 * max(1, csr.nnz):
+                return self.update2(A_new)
+            levels = [csr]
+            for l, (P, R, Ac_old) in enumerate(zip(
+                    self.info.Ps, self.info.Rs, self.info.csr_levels[1:])):
+                with span("saena.update.galerkin"):
+                    D = (R @ D @ P).tocsr()
+                    Ac = (Ac_old + D).tocsr()
+                    Ac.sort_indices()
+                    levels.append(Ac)
+            self.info.csr_levels = levels
+            self._redevicify(snap)
         return self
 
     def _snapshot(self):

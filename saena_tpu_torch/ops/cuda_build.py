@@ -28,6 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
+# the seconds ``load`` has spent compiling, summed over the process
+build_s = 0.0
 
 
 def nvcc_path() -> str:
@@ -86,10 +88,11 @@ def build(names=KERNEL_SOURCES) -> dict:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, built first if needed."""
+    global build_s
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            build((name,))
+            build_s += build((name,))[name][0]
             lib = ctypes.CDLL(library_path(name))
             _LIBS[name] = lib
         return lib

@@ -2,8 +2,6 @@
 names, arguments and keys of saena_tpu/profiling.py:
 
 - profile_matvecs: per-level SpMV timing (ref saena_object.cpp:618-697)
-- modeled_matvec_time / model_check: the format picker's cost model
-  against the measured times
 - vcycle_breakdown: smooth / resid / Rtransfer+Ptransfer / coarsest
   components (ref print_vcycle_time, saena_object.cpp:593-615)
 - pcg_profile: the pCG iteration's phases (ref PROFILE_PCG,
@@ -33,7 +31,6 @@ from saena_tpu_torch.amg import graphs as _g
 from saena_tpu_torch.amg.cycles import coarsest_solve, vcycle
 from saena_tpu_torch.amg.hierarchy import dtype_name
 from saena_tpu_torch.amg.smoothers import smooth
-from saena_tpu_torch.ops.formats import pad_to
 
 
 def device_name(device) -> str:
@@ -104,77 +101,6 @@ def profile_matvecs(hierarchy, n_iter: int | None = None) -> list[dict]:
             "nnz_per_s": lv.A.nnz / dt,
             "device": dev,
         })
-    return rows
-
-
-def modeled_matvec_time(M):
-    """Modeled matvec seconds of a built operator, from the constants the
-    format picker ranks with (the H100 fits in ops/strip_spmv.py,
-    ops/strip8_spmv.py and ops/formats.py): strip pairs at the perrow's ns a
-    pair, strip8 real tiles at the mode's ns a tile, BSR blocks streamed.
-    None for formats chosen by structure rather than by these constants
-    (DIA, dense, ELL, the structural transfers)."""
-    from saena_tpu_torch.ops.formats import (
-        BSR_STREAM_BPS, BSR_TIME_FACTOR, KERNEL_LAUNCH_S, BsrMatrix)
-    from saena_tpu_torch.ops.strip8_spmv import STRIP8_NS_PER_TILE, Strip8Matrix
-    from saena_tpu_torch.ops.strip_spmv import (
-        STRIP_LAUNCH_S, STRIP_NS_BY_PERROW, StripMatrix)
-
-    if isinstance(M, StripMatrix):
-        return STRIP_LAUNCH_S + \
-            M.vals.shape[0] * STRIP_NS_BY_PERROW[M.perrow] * 1e-9
-    if isinstance(M, Strip8Matrix):
-        return KERNEL_LAUNCH_S + \
-            int(M.rbt_ptr[-1]) * STRIP8_NS_PER_TILE[M.mode] * 1e-9
-    if isinstance(M, BsrMatrix):
-        nbytes = M.blocks.numel() * M.blocks.element_size()
-        return KERNEL_LAUNCH_S + nbytes * BSR_TIME_FACTOR / BSR_STREAM_BPS
-    return None
-
-
-def model_check(hierarchy, n_iter: int | None = None,
-                include_transfers: bool = True) -> list[dict]:
-    """Modeled against measured matvec times, for each level whose A has a
-    model and, with ``include_transfers``, each level whose P and R both
-    have one: the pair is timed as v -> R(P(v)) in coarse space and held
-    against model(P) + model(R)."""
-    dev = device_name(hierarchy.device)
-    rows = []
-    for lv, meas in zip(hierarchy.levels, profile_matvecs(hierarchy, n_iter)):
-        t_model = modeled_matvec_time(lv.A)
-        if t_model is None:
-            continue
-        rows.append({
-            "level": lv.lvl,
-            "op": "A",
-            "format": meas["format"],
-            "modeled_us": round(t_model * 1e6, 2),
-            "measured_us": round(meas["time_us"], 2),
-            "ratio": round(meas["time_us"] / max(1e-9, t_model * 1e6), 3),
-            "device": dev,
-        })
-    if include_transfers:
-        for lv in hierarchy.levels[:-1]:
-            if lv.P is None or lv.R is None:
-                continue
-            mP = modeled_matvec_time(lv.P)
-            mR = modeled_matvec_time(lv.R)
-            if mP is None or mR is None:
-                continue
-            xc = torch.ones(pad_to(lv.P.shape[1]), dtype=lv.dtype,
-                            device=hierarchy.device)
-            t = _seconds(lambda: lv.R.matvec(lv.P.matvec(xc).to(lv.dtype)),
-                         hierarchy.device, n_iter)
-            model = mP + mR
-            rows.append({
-                "level": lv.lvl,
-                "op": "P+R",
-                "format": f"{type(lv.P).__name__}+{type(lv.R).__name__}",
-                "modeled_us": round(model * 1e6, 2),
-                "measured_us": round(t * 1e6, 2),
-                "ratio": round(t / max(1e-12, model), 3),
-                "device": dev,
-            })
     return rows
 
 

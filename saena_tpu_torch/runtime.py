@@ -1,11 +1,13 @@
-"""Device and dtype resolution, and the setup phase timer."""
+"""Device and dtype resolution, the setup phase timer, and the spans that
+mark the port's layers in a torch.profiler trace."""
 from __future__ import annotations
 
 import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 def resolve_device(device=None) -> torch.device:
@@ -39,13 +41,37 @@ def resolve_dtype(dtype=None) -> torch.dtype:
     return dtype if dtype is not None else torch.get_default_dtype()
 
 
+# the span while no profiler records: one shared context that does nothing
+_NO_SPAN = nullcontext()
+
+
+def span(name: str):
+    """A span of the port's layers, ``name`` (``saena.*``), on the
+    profiler's clock.
+
+    While a torch profiler records it is ``torch.profiler.record_function(
+    name)``: the span sits in the trace's timeline beside the device's work
+    and is kept in memory until the trace is exported. Else it is one shared
+    no-op context: one flag read, nothing allocated. Spans go around graph
+    replays and host work, never inside a part that is being captured into
+    a graph."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
+
+
 class PhaseTimer:
     """Per-phase wall seconds of one setup, summed across its threads
     (phases overlap, so the sum may exceed the wall time), and the bytes
-    uploaded to the device, kept apart from the seconds."""
+    uploaded to the device, kept apart from the seconds. ``spans`` keeps
+    each ``phase`` interval as (name, start_s, end_s, thread_id) on
+    ``time.perf_counter``, the thread id the OS's; while a torch profiler
+    records, a phase is also the span ``saena.setup.<name>`` on the thread
+    that runs it."""
 
     def __init__(self):
         self.seconds: dict = {}
+        self.spans: list = []
         self.upload_bytes = 0
         self._lock = threading.Lock()
 
@@ -60,8 +86,11 @@ class PhaseTimer:
 
     @contextmanager
     def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.add(name, time.perf_counter() - t0)
+        with span("saena.setup." + name):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                t1 = time.perf_counter()
+                self.add(name, t1 - t0)
+                self.spans.append((name, t0, t1, threading.get_native_id()))

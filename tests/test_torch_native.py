@@ -12,8 +12,11 @@ saena_tpu's, and against the port's own numpy versions, on the CPU.
   sources, the flags and the host CPU, reuses a current build, raises with
   the compiler's output when g++ fails, and gives None without g++.
 """
+import fcntl
 import os
 import shutil
+import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -29,6 +32,30 @@ from saena_tpu_torch.amg import strength as tstr
 from saena_tpu_torch.core.coo import remove_boundary_nodes
 from saena_tpu_torch.ops import strip8_spmv as ts8
 from saena_tpu_torch.ops import strip_spmv as ts1
+
+
+def _load_reference_native(tries=10):
+    """Load saena_tpu._native's library under a lock the test processes
+    share. saena_tpu builds it on first use through one temporary file of a
+    fixed name, so two processes that build it at once race, and the loser
+    goes on without the library. Under the lock one process builds while
+    the others wait; a process that lost a race with one that does not take
+    the lock tries again once the winner's library is in place. Without g++
+    there is nothing to build, and the tests that need it fail as before."""
+    if shutil.which("g++") is None:
+        return
+    lock = os.path.join(tempfile.gettempdir(), "saena_tpu_native.lock")
+    with open(lock, "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        for _ in range(tries):
+            if jn.have_native():
+                return
+            time.sleep(2.0)
+            jn._TRIED = False
+
+
+# at import, so every test process loads it before its tests run
+_load_reference_native()
 
 
 def _same(a, b):

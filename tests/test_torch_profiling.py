@@ -5,13 +5,9 @@ Times are host times here (perf_counter on a CPU hierarchy) and are only
 checked to be positive. What must equal saena_tpu's on the same matrix and
 options: the rows (one per level), their keys (saena_tpu's plus "device",
 which is "cpu" here), levels, n, nnz and format names, and the keys of the
-V-cycle breakdown and the pCG phases. The cost model (modeled_matvec_time)
-gives a time for the strip, strip8 and BSR operators where saena_tpu's does
-and None for the structurally chosen formats; its values are the port's
-H100 constants, which differ from saena_tpu's, so they are checked against
-those constants. profile_trace writes a trace with the solve's span.
+V-cycle breakdown and the pCG phases. profile_trace writes a trace with
+the solve's span.
 """
-import dataclasses
 import os
 
 import numpy as np
@@ -24,18 +20,11 @@ from saena_tpu.amg import hierarchy as jh
 from saena_tpu.config import Options as JOptions
 from saena_tpu.generators import laplacian2D, laplacian3D
 from saena_tpu import profiling as jprof
-from saena_tpu.ops import formats as jformats
-from saena_tpu.ops import pallas_strip8_spmv as jstrip8
-from saena_tpu.ops import pallas_strip_spmv as jstrip
 
 from saena_tpu_torch import AMG, Matrix, Options
 from saena_tpu_torch import profiling as tprof
 from saena_tpu_torch.amg import hierarchy as th
 from saena_tpu_torch.core.coo import remove_boundary_nodes
-from saena_tpu_torch.ops import formats as tformats
-from saena_tpu_torch.ops.strip8_spmv import STRIP8_NS_PER_TILE, strip8_from_csr
-from saena_tpu_torch.ops.strip_spmv import (STRIP_LAUNCH_S, STRIP_NS_BY_PERROW,
-                                            strip_from_csr)
 
 F64 = dict(dtype=torch.float64, device="cpu")
 
@@ -136,55 +125,3 @@ def test_profile_trace_writes_the_solve(tmp_path):
     # a CPU hierarchy: the span is there, and no device work in it
     assert busy["wall_ms"] > 0 and busy["busy_ms"] == 0.0
     assert busy["idle_share"] == 1.0
-
-
-def _layouts():
-    A = remove_boundary_nodes(laplacian3D(16, 16, 16))[0].tocsr()
-    return A, {
-        "strip": (strip_from_csr(A, torch.float64, "cpu"),
-                  jstrip.strip_from_csr(A, jnp.float64)),
-        "strip8": (strip8_from_csr(A, torch.float64, "cpu"),
-                   jstrip8.strip8_from_csr(A, jnp.float64)),
-        "bsr": (tformats.bsr_from_csr(A, torch.float64, "cpu"),
-                jformats.bsr_from_csr(A, dtype=jnp.float64)),
-    }
-
-
-def test_modeled_matvec_time_on_the_gather_formats():
-    A, lay = _layouts()
-    for kind, (M, J) in lay.items():
-        t = tprof.modeled_matvec_time(M)
-        assert (t is None) == (jprof.modeled_matvec_time(J) is None), kind
-        assert t is not None and t > 0, kind
-    S = lay["strip"][0]
-    assert tprof.modeled_matvec_time(S) == pytest.approx(
-        STRIP_LAUNCH_S + S.vals.shape[0] * STRIP_NS_BY_PERROW[S.perrow] * 1e-9)
-    S8 = lay["strip8"][0]
-    assert tprof.modeled_matvec_time(S8) == pytest.approx(
-        tformats.KERNEL_LAUNCH_S
-        + int(S8.rbt_ptr[-1]) * STRIP8_NS_PER_TILE[S8.mode] * 1e-9)
-    for M in (tformats.dia_from_csr(A, torch.float64, "cpu"),
-              tformats.ell_from_csr(A, torch.float64, "cpu")):
-        assert tprof.modeled_matvec_time(M) is None
-
-
-def test_model_check_rows_on_gather_levels():
-    """A hierarchy whose level-1 A and level-0 P / R are strip8 and strip
-    layouts: model_check gives an "A" row and a "P+R" row with saena_tpu's
-    keys and the device."""
-    A = remove_boundary_nodes(laplacian3D(12, 12, 12))[0]
-    TH, info = th.setup(A, Options(), **F64)
-    levels = list(TH.levels)
-    levels[1] = dataclasses.replace(
-        levels[1], A=strip8_from_csr(info.csr_levels[1], torch.float64, "cpu"))
-    levels[0] = dataclasses.replace(
-        levels[0], P=strip_from_csr(info.Ps[0], torch.float64, "cpu"),
-        R=strip8_from_csr(info.Rs[0], torch.float64, "cpu"))
-    H = dataclasses.replace(TH, levels=tuple(levels))
-    rows = tprof.model_check(H, n_iter=2)
-    assert [(r["level"], r["op"]) for r in rows] == [(1, "A"), (0, "P+R")]
-    for r in rows:
-        assert set(r) == {"level", "op", "format", "modeled_us", "measured_us",
-                          "ratio", "device"}
-        assert r["modeled_us"] > 0 and r["measured_us"] > 0 and r["ratio"] > 0
-    assert rows[1]["format"] == "StripMatrix+Strip8Matrix"
