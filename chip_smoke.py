@@ -7,7 +7,7 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
 
 1. Card and build: the card's name and power limit, then an nvcc build of
    every CUDA kernel of the port from saena_tpu_torch/csrc/ (DIA, strip,
-   strip8), all nvcc processes started together. Then the host levels of the
+   strip8, ELL), all nvcc processes started together. Then the host levels of the
    48^3 Poisson interior (the poisson3d_48 golden's levels), whose operators
    give the kernels their main-path shapes. The native host kernels of the
    setup (saena_tpu_torch/_native, g++) must build and load.
@@ -36,7 +36,14 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
      f64 sharded hierarchy of the host levels (K1 in rectangular mode: the
      shard's rows over its halo-extended x, x_row0 = lo_pad / 128), and
      shard 1 of the level-2 A in strip8 (K3 on a shard's tiles).
-   - both: an operator of one real pair / tile, and layouts cut into small
+   - ELL (K4): a level-3-shaped operator (tests/test_torch_ell_spmv.py's
+     ``level3_like``: 20,835 rows of 510-4,917 entries on a lattice, ELL
+     width 4,044, its 32-row tiles reading 66.6 M of 84.4 M slots, as the
+     96^3 Poisson level 3 reads 68.0 M of 84.2 M at width 4,037), the 48^3
+     A with ten long rows (spill), a prolongator and a restrictor shape,
+     and a block whose x outgrows shared memory and the L1; two launches
+     bit-equal, the error a number within its tolerance.
+   - strip / strip8: an operator of one real pair / tile, and layouts cut into small
      chunks so that row blocks are cut (unit counts no multiple of the
      chunk). Every case runs on both paths of its kernel (rows and stream),
      twice, and with x a view that is not 16-byte aligned: the results must
@@ -56,7 +63,9 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    (b) the same f64 solve on the same host levels, with the device formats
        chosen here by the port's own builders: every Pt in strip, every Pt^T
        in strip8 (inside SmoothedP/SmoothedR), the level-2 A in whichever of
-       strip and strip8 the picker did not choose. Same golden check.
+       strip and strip8 the picker did not choose, and the level-3 A (dense
+       in the picker's hierarchy) in ELL at the 0.98 quantile, so that K4
+       runs on the main path. Same golden check.
    (c) the 48^3 setup on the card's host, default (setup_shards=-1, shard-
        parallel) and serial (setup_shards=0): wall seconds and phases, the
        shard count, the setup wire volume, whether the native library was
@@ -94,7 +103,8 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
        histories at rtol 1e-6 against the CPU twin; the ms of 20 solves of
        each beside the Python loops that preceded the graph engine.
    (h) Options.smooth_dtype: f32 with bf16 twins (the card's picks), the
-       same hierarchy forced as in (b) (the level-2 A's twin in strip), and
+       same hierarchy forced as in (b) (the level-2 A's twin in strip, the
+       level-3 A's in ELL), and
        f64 with f32 twins; each must reach 1e-8 within one iteration of the
        same solve without twins, and every kernel must launch with bf16
        values; the ms of 20 solves of each beside 20 of the solve without
@@ -141,10 +151,12 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
        so TF32 is off; f64: 1e-12), the dense ring on prepared operands
        beside torch.matmul and the sparse ring's numeric phase;
        AMG.matmat(mesh=Mesh(4)) against the host product (1e-12); an
-       EllMatrix with spill, two matvecs bit-equal; spgemm_blocks of the
+       EllMatrix with spill, two matvecs bit-equal, both through K4;
+       spgemm_blocks of the
        48^3 R A, two calls bit-equal.
-   Every kernel must have launched in phase 3, the strip and strip8
-   kernels on both of their paths, the DIA kernel in both of its designs:
+   Every kernel must have launched in phase 3 (K4 on (b)'s level-3 A, and
+   with bf16 values on (h)'s twin of it), the strip and strip8 kernels on
+   both of their paths, the DIA kernel in both of its designs:
    the tiled kernel for every operator of more than 8 diagonals (level 1),
    the row kernel for the others (level 0), as its plan picks. The DIA
    wrapper also counts its launches by (n_pad, ndiag, variant); those
@@ -177,11 +189,14 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    level-2 A, each with its plain version, cuSPARSE's SpMV of the same
    block and its launches per sharded solve; and the level-2 ShardedStrip8
    matvec split into its halo extension, K3 per shard (alone and all
-   shards in a row) and the stack.
+   shards in a row) and the stack. K4 on the level-3-shaped ELL, f64 and
+   f32, with the L2 flushed before each launch, beside its bound, the plain
+   torch version and cuSPARSE's CSR product.
 
 The second-to-last line is one JSON object listing every ported kernel,
 each kernel's bf16-values mode as an entry of its own, and K1's rectangular
-mode and K3 on a shard (the sharded path) likewise; the last line is
+mode and K3 on a shard (the sharded path) likewise, and K4 (no Pallas
+kernel: ``replaces`` null); the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when no CUDA card is present or the port's package is missing.
 """
@@ -189,6 +204,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -611,6 +627,82 @@ def check_gather(dev, cases):
     return rows, bad
 
 
+# ---------------------------------------------------- phase 2: ELL kernel --
+
+ELL_WIDE_X = 70_000           # columns whose f64 / f32 x outgrows an SM's L1
+FLUSH_BYTES = 256 * 2**20     # written before each flushed launch: > 4 x the L2
+
+
+def ell_cases() -> dict:
+    """K4's shapes: the level-3-shaped operator, the 48^3 A with ten long
+    rows (spill), a prolongator and a restrictor shape, and a block whose x
+    outgrows an SM's L1."""
+    import scipy.sparse as sp
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_ell_spmv import level3_like
+
+    A = _poisson_interior(M).tocsr().tolil()
+    rng = np.random.default_rng(7)
+    for r in range(10):
+        A[r, rng.choice(A.shape[1], 200, replace=False)] = rng.standard_normal(200)
+    rand = lambda n, m, d, seed: sp.random(n, m, density=d, format="csr",
+                                           random_state=np.random.default_rng(seed))
+    return {"L3_like": level3_like(), "spill_48": A.tocsr(),
+            "rect_P": rand(7000, 900, 0.003, 2), "rect_R": rand(900, 7000, 0.003, 4),
+            "x_past_smem": rand(3000, ELL_WIDE_X, 0.002, 8)}
+
+
+def ell_with(Mx, f):
+    """An EllMatrix with Mx's layout and values f(values)."""
+    from saena_tpu_torch.ops.formats import EllMatrix
+
+    return EllMatrix(Mx.cols, f(Mx.vals), Mx.spill_rows, Mx.spill_cols,
+                     f(Mx.spill_vals), Mx.shape, Mx.nnz)
+
+
+def check_ell(dev, cases):
+    """K4 against ell_spmv_plain on the card in f64, f32 and bf16 values
+    (f32 x and sums, against the plain f32 sum of the same values):
+    row-sum-scaled error within TOL, the zero padding kept, two launches
+    bit-equal and counted. Returns (rows, failure or None)."""
+    import torch
+
+    from saena_tpu_torch.ops import ell_spmv as K
+    from saena_tpu_torch.ops.formats import ell_from_csr
+
+    rows, bad = [], None
+    for case, A in cases.items():
+        M64 = ell_from_csr(A, torch.float64, dev, width_quantile=0.98)
+        for dname in ("float64", "float32", "bfloat16"):
+            Mx = ell_with(M64, lambda v: v.to(getattr(torch, dname)))
+            cdt = K.compute_dtype(Mx.dtype)
+            x = torch.zeros(Mx.plan.n_x, dtype=cdt, device=dev)
+            x[: A.shape[1]] = torch.tensor(
+                np.random.default_rng(5).standard_normal(A.shape[1]), dtype=cdt)
+            n0 = K.launches
+            y1, y2 = Mx.matvec(x), Mx.matvec(x)
+            torch.cuda.synchronize()
+            ref = K.ell_spmv_plain(ell_with(Mx, lambda v: v.to(cdt)), x)
+            scale = K.ell_spmv_plain(ell_with(Mx, lambda v: v.to(cdt).abs()),
+                                     x.abs()).clamp_min(torch.finfo(cdt).tiny)
+            err = float(((y1 - ref).abs() / scale).max())
+            row = {"case": case, "dtype": dname, "shape": list(A.shape), "nnz": int(A.nnz),
+                   "width": Mx.vals.shape[0], "slots_read": int(Mx.tile_bound.sum()) * K.TILE,
+                   "spill": int(Mx.spill_rows.numel()), "blocks": Mx.plan.n_blocks,
+                   "err": err,
+                   "bit_equal": bool(torch.equal(y1, y2)),
+                   "pad_zero": bool((y1[A.shape[0]:] == 0).all()),
+                   "launches": K.launches - n0}
+            rows.append(row)
+            print("  " + json.dumps(row))
+            if bad is None and (not err <= TOL[dname] or not row["bit_equal"]
+                                or not row["pad_zero"] or row["launches"] != 2):
+                bad = f"K4 {row}"
+        del M64
+    return rows, bad
+
+
 # --------------------------------------------------- phase 3: main path --
 
 
@@ -708,11 +800,12 @@ def solve_main_path(dev, dtype, golden):
 
 def forced_hierarchy(solver):
     """The picker's hierarchy with every transfer structural, Pt in strip
-    and Pt^T in strip8, and the level-2 A (and its smoothers' twin, if it
-    has one) in whichever of strip and strip8 the picker did not choose;
-    the host levels are the solver's own."""
+    and Pt^T in strip8, the level-2 A (and its smoothers' twin, if it has
+    one) in whichever of strip and strip8 the picker did not choose, and
+    the level-3 A (and its twin) in ELL; the host levels are the solver's
+    own."""
     from saena_tpu_torch.amg.prolongation import tentative_prolongator
-    from saena_tpu_torch.ops.formats import pad_to, to_device
+    from saena_tpu_torch.ops.formats import ell_from_csr, pad_to, to_device
     from saena_tpu_torch.ops.strip8_spmv import strip8_from_csr
     from saena_tpu_torch.ops.strip_spmv import StripMatrix, strip_from_csr
     from saena_tpu_torch.ops.transfers import SmoothedP, SmoothedR
@@ -720,14 +813,15 @@ def forced_hierarchy(solver):
     H, info = solver.hierarchy, solver.info
     dev, dt = H.device, H.dtype
     levels = list(H.levels)
-    A2 = info.csr_levels[2]
     other = strip8_from_csr if isinstance(levels[2].A, StripMatrix) else strip_from_csr
-    twin = levels[2].A_smooth
-    if twin is None:
-        levels[2] = dataclasses.replace(levels[2], A=other(A2, dt, dev))
-    else:
-        A_2, twin = other(A2, dt, dev, smooth_dtype=twin.dtype)
-        levels[2] = dataclasses.replace(levels[2], A=A_2, A_smooth=twin)
+    ell = functools.partial(ell_from_csr, width_quantile=0.98)
+    for l, build in ((2, other), (3, ell)):
+        twin = levels[l].A_smooth
+        if twin is None:
+            levels[l] = dataclasses.replace(levels[l], A=build(info.csr_levels[l], dt, dev))
+        else:
+            A_l, twin = build(info.csr_levels[l], dt, dev, smooth_dtype=twin.dtype)
+            levels[l] = dataclasses.replace(levels[l], A=A_l, A_smooth=twin)
     for l in range(len(levels) - 1):
         agg, wq = info.structs[l]
         n, n_c = info.sizes[l], info.sizes[l + 1]
@@ -847,13 +941,14 @@ ENTRY_POINTS = (("solve", {}), ("solve_pGMRES", {}),
 
 
 def kernel_launches() -> dict:
-    """The three wrappers' launch counts as they stand."""
+    """The four wrappers' launch counts as they stand."""
     from saena_tpu_torch.ops import dia_spmv as d
+    from saena_tpu_torch.ops import ell_spmv as e
     from saena_tpu_torch.ops import strip8_spmv as s8
     from saena_tpu_torch.ops import strip_spmv as s1
 
     return {"dia_spmv": d.launches, "strip_spmv": s1.launches,
-            "strip8_spmv": s8.launches}
+            "strip8_spmv": s8.launches, "ell_spmv": e.launches}
 
 
 def cpu_twin(solver):
@@ -1018,14 +1113,17 @@ def eager_pcg(H, rhs, **kw):
 
 
 def launch_delta(fn):
-    """(fn(), the launches it made by counter and by K1 shape)."""
+    """(fn(), the launches it made by counter and by K1 and K4 shape)."""
     from saena_tpu_torch.amg.graphs import counts
 
     (i0, s0), out, (i1, s1) = counts(), fn(), counts()
     d = {f"{m.__name__.rsplit('.', 1)[1]}.{a}": i1[(m, a)] - v
          for (m, a), v in i0.items()}
-    d.update({f"{k[0]}x{k[1]} {k[2]}": v - s0.get(k, 0)
-              for k, v in s1.items() if v != s0.get(k, 0)})
+    # by shape: K1's as "<n_pad>x<ndiag> <variant>", K4's with its name first
+    for m, after in s1.items():
+        name = "" if m.__name__.endswith("dia_spmv") else f"{m.__name__.rsplit('.', 1)[1]} "
+        d.update({f"{name}{'x'.join(map(str, k[:-1]))} {k[-1]}": v - s0[m].get(k, 0)
+                  for k, v in after.items() if v != s0[m].get(k, 0)})
     return out, d
 
 
@@ -2133,6 +2231,7 @@ def api_and_repairs(dev, card):
     from saena_tpu_torch import AMG, Matrix
     from saena_tpu_torch.amg.galerkin import _spgemm
     from saena_tpu_torch.generators import random_symm_matrix
+    from saena_tpu_torch.ops import ell_spmv as ell_mod
     from saena_tpu_torch.ops.bspgemm import spgemm_blocks
     from saena_tpu_torch.ops.formats import ell_from_csr
     from saena_tpu_torch.parallel.comm import Mesh
@@ -2157,7 +2256,9 @@ def api_and_repairs(dev, card):
     A = A.tocsr()
     E = ell_from_csr(A, torch.float64, dev, width_quantile=0.98)
     x = torch.tensor(rng.standard_normal(E.n_pad), dtype=torch.float64, device=dev)
+    k4 = ell_mod.launches
     y1, y2 = E.matvec(x), E.matvec(x)
+    k4 = ell_mod.launches - k4
     y_cpu = ell_from_csr(A, torch.float64, "cpu", width_quantile=0.98).matvec(x.cpu())
     ell_err = float((y1.cpu() - y_cpu).abs().max() / y_cpu.abs().max())
 
@@ -2170,13 +2271,14 @@ def api_and_repairs(dev, card):
     sb_err = float(abs(S1 - ref).max()) / float(abs(ref).max())
     row = {"api_mesh_vs_host_rel": api_err, "api_mesh_s": mesh_s,
            "ell_spill": int(E.spill_rows.numel()), "ell_bit_equal": bool(torch.equal(y1, y2)),
+           "ell_k4_launches": k4,
            "ell_vs_cpu_rel": ell_err, "spgemm_blocks_bit_equal": same_csr(S1, S2),
            "spgemm_blocks_vs_host_rel": sb_err, "spgemm_blocks_s": blocks_s, "card": card}
     print("  " + json.dumps(row))
     bad = None
     if api_err > 1e-12:
         bad = f"AMG.matmat on a mesh differs from the host product by {api_err:.3e}"
-    elif not (row["ell_spill"] and row["ell_bit_equal"]) or ell_err > 1e-12:
+    elif not (row["ell_spill"] and row["ell_bit_equal"]) or ell_err > 1e-12 or k4 != 2:
         bad = f"EllMatrix spill: {row}"
     elif not row["spgemm_blocks_bit_equal"] or sb_err > 1e-12:
         bad = f"spgemm_blocks: {row}"
@@ -2434,6 +2536,71 @@ def time_gather(dev, case, kind, M64, A_host, plain=True, library=True,
     return r
 
 
+def flushed_us(fn, dev, reps: int = 50) -> float:
+    """Median device µs of ``fn()`` over ``reps`` calls, each after a write of
+    FLUSH_BYTES that evicts the L2 (CUDA events around the call alone)."""
+    import torch
+
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    for _ in range(3):
+        fn()
+    us = []
+    for i in range(reps):
+        flush.fill_(i & 0x7F)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        us.append(e0.elapsed_time(e1) * 1e3)
+    return float(np.median(us))
+
+
+def time_ell(dev, A, case="L3_like"):
+    """K4 on the level-3-shaped operator, f64 and f32, in µs with the L2
+    flushed before each launch: beside its bound (bytes free of the format,
+    (nnz + rows + cols) x itemsize, as amgbench/roofline.py counts them),
+    the bound of the slots it streams (each slot below its tile's bound, the
+    spill triples, x and y), the plain torch version and cuSPARSE's CSR
+    product of the same operator; and graph-replayed with warm x and y."""
+    import torch
+
+    from saena_tpu_torch.ops import ell_spmv as K
+    from saena_tpu_torch.ops.formats import ell_from_csr
+    from saena_tpu_torch.profiling import graph_ms
+
+    M64 = ell_from_csr(A, torch.float64, dev, width_quantile=0.98)
+    rows = []
+    for dname in ("float64", "float32"):
+        dt = getattr(torch, dname)
+        Mx = ell_with(M64, lambda v: v.to(dt))
+        sz = Mx.vals.element_size()
+        x = torch.zeros(Mx.plan.n_x, dtype=dt, device=dev)
+        x[: A.shape[1]] = torch.tensor(
+            np.random.default_rng(7).standard_normal(A.shape[1]), dtype=dt)
+        slots = int(Mx.tile_bound.sum()) * K.TILE
+        free_bytes = (A.nnz + A.shape[0] + A.shape[1]) * sz
+        stream_bytes = ((slots + Mx.spill_rows.numel()) * (sz + 4)
+                        + (Mx.plan.n_x + Mx.n_pad) * sz)
+        Acsr = csr_on_card(A, dt, dev, Mx.n_pad, Mx.plan.n_x)
+        r = {"kernel": "ell_spmv", "case": case, "dtype": dname, "rows": A.shape[0],
+             "nnz": int(A.nnz), "width": Mx.vals.shape[0],
+             "stored_slots": Mx.vals.numel(), "slots_read": slots,
+             "blocks": Mx.plan.n_blocks, "us": flushed_us(lambda: Mx.matvec(x), dev),
+             "plain_us": flushed_us(lambda: K.ell_spmv_plain(Mx, x), dev, reps=10),
+             "library_us": flushed_us(lambda: Acsr @ x, dev, reps=20),
+             "warm_us": graph_ms(lambda: Mx.matvec(x), reps=10) * 1e3,
+             "bound_us": free_bytes / HBM_BPS * 1e6,
+             "stream_bound_us": stream_bytes / HBM_BPS * 1e6}
+        r["share_of_bound"] = r["bound_us"] / r["us"]
+        r["stream_share"] = r["stream_bound_us"] / r["us"]
+        rows.append(r)
+        print("  " + json.dumps(r))
+        del Acsr
+    return rows
+
+
 def solve_gather_ops(solver) -> list:
     """(label, kind, layout, host CSR) of every strip / strip8 operator in
     the solver's hierarchy: a level's A, its direct P and R, and the Pt /
@@ -2586,10 +2753,12 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from saena_tpu_torch.ops import cuda_build
     from saena_tpu_torch.ops import dia_spmv as dia_mod
+    from saena_tpu_torch.ops import ell_spmv as ell_mod
     from saena_tpu_torch.ops import strip8_spmv as s8_mod
     from saena_tpu_torch.ops import strip_spmv as s1_mod
 
-    counters = {"dia_spmv": dia_mod, "strip_spmv": s1_mod, "strip8_spmv": s8_mod}
+    counters = {"dia_spmv": dia_mod, "strip_spmv": s1_mod, "strip8_spmv": s8_mod,
+                "ell_spmv": ell_mod}
 
     def zero():
         for mod in counters.values():
@@ -2599,6 +2768,7 @@ def main() -> int:
         dia_mod.rows_launches = dia_mod.rect_launches = 0
         s8_mod.shard_launches = 0
         dia_mod.shape_launches.clear()
+        ell_mod.shape_launches.clear()
 
     def read():
         """(launches by kernel and path, failure or None): the DIA kernel's
@@ -2676,10 +2846,16 @@ def main() -> int:
     gchecks, bad = check_gather(dev, cases)
     if bad:
         return fail(f"gather kernel disagrees with its plain version: {bad}")
+    print("[2] ELL kernel (K4) vs plain version")
+    ecases = ell_cases()
+    erows, bad = check_ell(dev, ecases)
+    if bad:
+        return fail(f"ELL kernel disagrees with its plain version: {bad}")
     worst_bf16 = {"dia_spmv": max(r[4] for r in checks if r[3] == "bfloat16")}
     for k in ("strip", "strip8"):
         worst_bf16[f"{k}_spmv"] = max(r[3] for r in gchecks
                                       if r[2] == "bfloat16" and cases[r[0]][0] == k)
+    worst_bf16["ell_spmv"] = max(r["err"] for r in erows if r["dtype"] == "bfloat16")
     print("[2] worst row-sum-scaled error with bf16 values (f32 x and sums), "
           "every case, configuration and path: " + json.dumps(worst_bf16))
 
@@ -2707,7 +2883,8 @@ def main() -> int:
     print(f"[3a] launches: f64 {launches_a64}, f32 {launches_a32}")
     est = pick_estimates(solver32.info, solver32.hierarchy, torch.float32)
     print("[3a] picker estimates (f32, µs): " + json.dumps(est))
-    print(f"[3b] forced path f64, {M}^3: Pt strip, Pt^T strip8, level-2 A the other")
+    print(f"[3b] forced path f64, {M}^3: Pt strip, Pt^T strip8, level-2 A the other, "
+          "level-3 A ELL")
     picker64 = solver64.hierarchy
     forced64 = solver64.hierarchy = forced_hierarchy(solver64)
     zero()
@@ -2911,8 +3088,9 @@ def main() -> int:
         bf_rows.append(time_gather(dev, label, kind, T, s_bf.info.csr_levels[2],
                                    vdt="bfloat16",
                                    launches_per_solve=per.get(id(T), 0)))
+    # K4's bf16 mode: phase 2's error and phase 3h's launches
     if min(r["launches_per_solve"] for r in bf_rows) <= 0 or \
-            {r["kernel"] for r in bf_rows} != set(counters):
+            {r["kernel"] for r in bf_rows} != set(counters) - {"ell_spmv"}:
         return fail("a bf16 operator of phase 4 never launched in its solve: "
                     + json.dumps([(r["kernel"], r["launches_per_solve"]) for r in bf_rows]))
     print(f"[4] the sharded path's shapes (phase 3k, D = {SHARD_D}): K1 rectangular on "
@@ -2936,6 +3114,10 @@ def main() -> int:
     if min(r["launches_per_solve"] for r in rect_rows + [shard_row]) <= 0:
         return fail("a K1 rectangular shape or the level-2 A's K3 views of phase 4 "
                     f"never launched in the D = {SHARD_D} sharded solve")
+    print("[4] K4 on level3_like (20,835 rows, width 4,044, 66.6 M of 84.4 M slots "
+          "read; the 96^3 level 3 reads 68.0 M of 84.2 M at width 4,037), L2 flushed "
+          "before each launch, µs; the kernels line's K4 entry is this operator in f64")
+    ell_times = time_ell(dev, ecases["L3_like"])
     consts = fit_constants(dev, ops, grows)
     print("[4] fitted cost constants: " + json.dumps(consts))
     print(f"[4] total {time.perf_counter() - t_start:.1f} s")
@@ -2992,7 +3174,14 @@ def main() -> int:
               "saena_tpu/ops/pallas_dia_spmv.py:148", rect_head, rect_err),
         entry("strip8_spmv/shard", "saena_tpu_torch/csrc/strip8_spmv.cu",
               "saena_tpu/ops/pallas_strip8_spmv.py:96", shard_row,
-              gerr["shard1_L2_A"])]}))
+              gerr["shard1_L2_A"])] + [
+        {"name": "ell_spmv", "route": "cuda", "source": "saena_tpu_torch/csrc/ell_spmv.cu",
+         "replaces": None, "launches": launches["ell_spmv"],
+         "max_abs_err": max(r["err"] for r in erows if r["dtype"] == "float64"),
+         "ms": r["us"] * 1e-3, "plain_ms": r["plain_us"] * 1e-3,
+         "bound_ms": r["bound_us"] * 1e-3, "bound_by": "bytes",
+         "library_ms": r["library_us"] * 1e-3}
+        for r in ell_times if r["dtype"] == "float64"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

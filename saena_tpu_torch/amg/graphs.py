@@ -40,16 +40,18 @@ import types
 
 import torch
 
-from saena_tpu_torch.ops import cuda_build, dia_spmv, strip8_spmv, strip_spmv
+from saena_tpu_torch.ops import cuda_build, dia_spmv, ell_spmv, strip8_spmv, strip_spmv
 from saena_tpu_torch.runtime import span
 
-# the wrappers' launch counters: (module, integer counters); the DIA
-# wrapper's launches by shape are a dict, dia_spmv.shape_launches
+# the wrappers' launch counters: (module, integer counters), and their
+# launches by shape, one dict a wrapper
 _COUNTERS = ((dia_spmv, ("launches", "rows_launches", "bf16_launches",
                          "rect_launches")),
              (strip_spmv, ("launches", "stream_launches", "bf16_launches")),
              (strip8_spmv, ("launches", "stream_launches", "interval_launches",
-                            "bf16_launches", "shard_launches")))
+                            "bf16_launches", "shard_launches")),
+             (ell_spmv, ("launches", "bf16_launches")))
+_SHAPES = (dia_spmv, ell_spmv)
 
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RESTART = 2    # the value of ``go`` when a loop's restart part is next
@@ -62,7 +64,7 @@ class GraphCaptureError(RuntimeError):
 def counts() -> tuple:
     """The wrappers' launch counters as they stand."""
     return ({(m, a): getattr(m, a) for m, names in _COUNTERS for a in names},
-            dict(dia_spmv.shape_launches))
+            {m: dict(m.shape_launches) for m in _SHAPES})
 
 
 def restore(saved) -> None:
@@ -70,14 +72,15 @@ def restore(saved) -> None:
     ints, shapes = saved
     for (m, a), v in ints.items():
         setattr(m, a, v)
-    dia_spmv.shape_launches.clear()
-    dia_spmv.shape_launches.update(shapes)
+    for m, d in shapes.items():
+        m.shape_launches.clear()
+        m.shape_launches.update(d)
 
 
 def _delta(before, after) -> tuple:
     ints = {k: after[0][k] - v for k, v in before[0].items() if after[0][k] != v}
-    shapes = {k: v - before[1].get(k, 0) for k, v in after[1].items()
-              if v != before[1].get(k, 0)}
+    shapes = {m: {k: v - before[1][m].get(k, 0) for k, v in d.items()
+                  if v != before[1][m].get(k, 0)} for m, d in after[1].items()}
     return ints, shapes
 
 
@@ -85,8 +88,9 @@ def _add(delta) -> None:
     ints, shapes = delta
     for (m, a), v in ints.items():
         setattr(m, a, getattr(m, a) + v)
-    for k, v in shapes.items():
-        dia_spmv.shape_launches[k] = dia_spmv.shape_launches.get(k, 0) + v
+    for m, d in shapes.items():
+        for k, v in d.items():
+            m.shape_launches[k] = m.shape_launches.get(k, 0) + v
 
 
 def _where(exc: BaseException) -> str:

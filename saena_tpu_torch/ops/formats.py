@@ -5,7 +5,7 @@ packages can be compared array for array:
 
 - ``EllMatrix``: slot-major ELLPACK, cols/vals ``(width, n_pad)``; rows
   longer than ``width`` spill to a COO tail, summed row by row in a fixed
-  order (``spill_segments``) and added once to each row.
+  order (``ell_spmv.spill_segments``) and added once to each row.
 - ``DiaMatrix``: diagonal storage ``(ndiag, n_pad)`` for stencil matrices;
   its matvec and fused smoother update are the DIA kernel (ops/dia_spmv.py).
 - ``DenseMatrix``: coarse levels switch to dense (ref
@@ -19,9 +19,10 @@ Vector convention: every device vector of a space of logical size n is
 padded to ``pad_to(n)`` (a multiple of 128) with zeros, and every operator
 preserves the zero padding, so the solve path never slices.
 
-Each format holds tensors on one explicit device. ELL is plain PyTorch (an
-``index_select`` gather and a sum); its spill is summed per row in the
-order of the triples, so two matvecs on the card give equal bits (a
+Each format holds tensors on one explicit device. ELL's matvec is the ELL
+kernel on the card (ops/ell_spmv.py) and plain PyTorch on the CPU (an
+``index_select`` gather and a sum); both sum a row's spill in the order of
+its triples and add it once, so two matvecs on the card give equal bits (a
 scatter of the triples would add a row's entries with atomics in no fixed
 order).
 
@@ -47,6 +48,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from saena_tpu_torch.ops import ell_spmv as _ell
 from saena_tpu_torch.ops.dia_spmv import dia_plan, dia_spmv, sm_count
 
 PAD = 128  # alignment of every device vector and row dimension
@@ -98,42 +100,14 @@ def int8_to_device(arr, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.int8)).to(device)
 
 
-def spill_segments(rows: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """Row groups of COO spill triples, so that each row's entries can be
-    summed in a fixed order and the sum added once to the row. rows (k, S)
-    -> (seg_rows (k, U), seg_idx (k, U, W)), int64: seg_idx[d, u] lists, in
-    their order, the triples of row seg_rows[d, u], padded with S (a zero
-    appended to the products); a group with fewer rows pads seg_rows with
-    row 0 and an all-padding list."""
-    k, S = rows.shape
-    groups = [np.unique(r, return_inverse=True, return_counts=True) for r in rows]
-    U = max(g[0].size for g in groups)
-    W = max(int(g[2].max()) for g in groups)
-    seg_rows = np.zeros((k, U), dtype=np.int64)
-    seg_idx = np.full((k, U, W), S, dtype=np.int64)
-    for d, (u, inv, cnt) in enumerate(groups):
-        order = np.argsort(inv, kind="stable")
-        seg_rows[d, : u.size] = u
-        slot = np.arange(S) - np.repeat(np.cumsum(cnt) - cnt, cnt)
-        seg_idx[d, inv[order], slot] = order
-    return seg_rows, seg_idx
-
-
-def spill_sums(prod: torch.Tensor, seg_idx: torch.Tensor) -> torch.Tensor:
-    """Per-row sums of spill products (..., S) in the order of
-    ``spill_segments``' lists: (..., U)."""
-    pad = torch.nn.functional.pad(prod, (0, 1))
-    if pad.dim() == 1:
-        return pad[seg_idx].sum(-1)
-    k = seg_idx.shape[0]
-    return torch.gather(pad, 1, seg_idx.reshape(k, -1)).reshape(seg_idx.shape).sum(-1)
-
-
 class EllMatrix:
     """Hybrid slot-major ELLPACK. cols/vals: (width, n_pad); padding slots
     have col=0, val=0. The spill triples hold the entries of rows whose nnz
     exceeds width; ``seg`` their row groups (``spill_segments``) on the
-    device, or None without spill."""
+    device, or None without spill. ``tile_bound`` (n_pad / 32,) int32: the
+    slots of each 32-row tile that hold its longest row
+    (``ell_spmv.tile_bounds``); on the card ``plan``, how the kernel walks
+    the matrix (``ell_spmv.ell_plan``), else None."""
 
     def __init__(self, cols, vals, spill_rows, spill_cols, spill_vals, shape, nnz):
         self.cols, self.vals = cols, vals
@@ -141,9 +115,13 @@ class EllMatrix:
         self.shape, self.nnz = tuple(shape), int(nnz)
         self.seg = None
         if spill_rows.numel():
-            seg_rows, seg_idx = spill_segments(spill_rows.cpu().numpy()[None])
+            seg_rows, seg_idx = _ell.spill_segments(spill_rows.cpu().numpy()[None])
             self.seg = (torch.from_numpy(seg_rows[0]).to(spill_rows.device),
                         torch.from_numpy(seg_idx[0]).to(spill_rows.device))
+        self.tile_bound = _ell.tile_bounds(vals)
+        self.plan = (_ell.ell_plan(self.tile_bound, spill_rows, spill_cols, spill_vals,
+                                   self.n_pad, pad_to(self.shape[1]))
+                     if vals.device.type == "cuda" else None)
 
     @property
     def dtype(self):
@@ -158,16 +136,10 @@ class EllMatrix:
         return self.vals.device
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A @ x. x: (pad_to(n_cols),) -> y: (pad_to(n_rows),)."""
-        x = x.to(self.dtype)
-        gathered = x.index_select(0, self.cols.reshape(-1)).view(self.cols.shape)
-        y = (self.vals * gathered).sum(0)
-        if self.seg is not None:
-            seg_rows, seg_idx = self.seg
-            prod = self.spill_vals * x.index_select(0, self.spill_cols)
-            # distinct rows: each gets one add
-            y.index_add_(0, seg_rows, spill_sums(prod, seg_idx))
-        return y
+        """y = A @ x. x: (pad_to(n_cols),) -> y: (pad_to(n_rows),); the
+        kernel on the card (at promote(dtype, f32)), the plain version on
+        the CPU (ops/ell_spmv.py)."""
+        return _ell.ell_spmv(self, x)
 
 
 class DiaMatrix:

@@ -63,10 +63,9 @@ from saena_tpu_torch.ops.formats import (
     GATHER_MAX_BYTES_PER_NNZ,
     dia_offsets_of,
     pad_to,
-    spill_segments,
-    spill_sums,
     to_device,
 )
+from saena_tpu_torch.ops.ell_spmv import spill_segments, spill_sums
 from saena_tpu_torch.parallel.comm import Mesh, make_mesh  # noqa: F401 (the JAX module has make_mesh)
 from saena_tpu_torch.parallel.halo import (
     HaloPlan,
@@ -126,7 +125,7 @@ class ShardedEll:
 
     def __post_init__(self):
         # the spill summed row by row in a fixed order, then added once to
-        # each row (formats.spill_segments): a scatter of the triples would
+        # each row (ell_spmv.spill_segments): a scatter of the triples would
         # add a row's entries with atomics in no fixed order on the card
         seg = None
         if self.spill_rows is not None and self.spill_rows.shape[-1]:
