@@ -57,6 +57,48 @@ _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RESTART = 2    # the value of ``go`` when a loop's restart part is next
 
 
+# the side stream of every warm-up and capture on a device, one a process
+# as torch.cuda.graph keeps one: cuBLAS keeps a workspace for each stream
+# it has run on, so a new stream each capture would hold another workspace
+# for each stream of torch's pool
+_SIDE: dict = {}
+# the memory pool of every capture on a device, one a process: a private
+# pool each capture would stay reserved after its graph is freed, until the
+# caching allocator's cache is emptied, and grow with every hierarchy that a
+# lazy update makes. In the one pool a capture takes the free blocks of the
+# captures before it, so the graphs of a process replay one after another,
+# never on two streams at once. A graph kept for the life of the process
+# holds the pool open: a pool whose last graph is freed cannot be captured
+# into again (its count of users would be 0, which torch asserts against).
+_POOL: dict = {}
+
+
+def _side_stream(dev: int) -> torch.cuda.Stream:
+    side = _SIDE.get(dev)
+    if side is None:
+        side = _SIDE[dev] = torch.cuda.Stream(dev)
+    return side
+
+
+def _pool(dev: int):
+    """The capture pool of device ``dev``, the current device; made, with
+    the graph that holds it open, at its first use inside a capture's
+    ``gc.disable``."""
+    got = _POOL.get(dev)
+    if got is None:
+        keep, x = torch.cuda.CUDAGraph(), torch.zeros(1, device=dev)
+        side = _side_stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            keep.capture_begin(pool=torch.cuda.graph_pool_handle(),
+                               capture_error_mode="thread_local")
+            x.add_(1.0)
+            keep.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        got = _POOL[dev] = (keep.pool(), keep, x)
+    return got[0]
+
+
 class GraphCaptureError(RuntimeError):
     """A part of a solver loop could not be captured into a CUDA graph."""
 
@@ -115,7 +157,7 @@ class Graph:
     def __init__(self, fn, what: str):
         dev = torch.cuda.current_device()
         before = counts()
-        side = torch.cuda.Stream(dev)
+        side = _side_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         self.graph = torch.cuda.CUDAGraph()
         # a graph that the cyclic collector frees during the capture (one
@@ -125,10 +167,12 @@ class Graph:
         collecting = gc.isenabled()
         gc.disable()
         try:
+            pool = _pool(dev)
             with torch.cuda.stream(side):
                 # worker threads of the setup may still touch the card:
                 # only this thread's calls are checked during the capture
-                self.graph.capture_begin(capture_error_mode="thread_local")
+                self.graph.capture_begin(pool=pool,
+                                         capture_error_mode="thread_local")
                 try:
                     fn()
                 finally:
@@ -172,7 +216,7 @@ class Loop:
         t0, built0 = time.perf_counter(), cuda_build.build_s
         dev = torch.cuda.current_device()
         before = counts()
-        side = torch.cuda.Stream(dev)
+        side = _side_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             for part in self.parts:

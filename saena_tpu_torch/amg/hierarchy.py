@@ -243,6 +243,12 @@ class SetupInfo:
     # time.perf_counter (runtime.PhaseTimer.spans)
     phase_spans: list = dataclasses.field(default_factory=list, repr=False)
     upload_bytes: int = 0
+    # per level, how a lazy devicify (``reuse=``) built it: "whole" (the
+    # old level kept), "values" (A and inv_diag rebuilt on the old plans,
+    # the old eig estimate and P/R kept), "rebuilt" (A planned and built
+    # from scratch and its eig estimate computed again; the old P/R kept
+    # where the host P/R are the same); None after a full setup
+    reuse: Optional[list] = None
     comm: object = None   # CommMeter when built by parallel/dist_setup.py
     n_shards: int = 0     # shard count of the setup that built this
     native: bool = False  # whether the native host kernels were used
@@ -566,7 +572,12 @@ def devicify(
     levels whose CSR object is unchanged are reused whole; levels whose
     pattern is unchanged keep the old eig estimate, format plans (moved
     onto the new CSR) and P/R device objects, and the coarse LU is kept
-    when the coarsest CSR is unchanged."""
+    when the coarsest CSR is unchanged. A level whose own pattern moved
+    is planned and built anew, its eig estimate computed again, and keeps
+    the old P/R device objects while its host P/R are the same.
+    ``SetupInfo.reuse`` records what each level took.
+    ``timer`` (a fresh one unless given) gathers the phases into
+    ``SetupInfo.phases`` and ``phase_spans``."""
     device = resolve_device(device)
     dtype = resolve_dtype(dtype)
     timer = timer or PhaseTimer()
@@ -577,10 +588,12 @@ def devicify(
                      structs=structs, native=_native.have_native())
 
     reuse_eigs: dict = {}
+    same_pats: set = set()
     if reuse is not None:
         old_hier, old_csrs, old_Ps, old_Rs = reuse
         for l in range(min(n_lv, len(old_csrs))):
             if _same_pattern(old_csrs[l], csr_levels[l]):
+                same_pats.add(l)
                 _transfer_plan_memos(old_csrs[l], csr_levels[l])
                 if old_hier.levels[l].eig_max is not None:
                     # a values-only refresh keeps lambda_max, the lazy
@@ -589,39 +602,41 @@ def devicify(
 
     def build_level(l):
         is_coarsest = l == n_lv - 1
+        kept_eig = {l: _DoneFuture(reuse_eigs[l])} if l in reuse_eigs else None
         if reuse is not None and l < len(old_csrs):
             old_lv = old_hier.levels[l]
             same_A = old_csrs[l] is csr_levels[l]
             same_PR = is_coarsest or (
                 l < len(old_Ps) and old_Ps[l] is Ps[l] and old_Rs[l] is Rs[l])
-            same_pat = l in reuse_eigs or \
-                _same_pattern(old_csrs[l], csr_levels[l])
             if same_A and same_PR:
                 Acsr = csr_levels[l]
                 n = Acsr.shape[0]
                 return old_lv, (n, int(Acsr.nnz), Acsr.nnz / max(1, n * n),
                                 type(old_lv.A).__name__,
-                                dtype_name(old_lv.A.dtype))
-            if same_PR and same_pat:
-                # values only: rebuild A and inv_diag, graft the old P/R
-                # unchanged. Structural SmoothedP/R embed the A they were
-                # smoothed with, and only that A matches the host Ps/Rs the
-                # coarse operators were built through: keep it
+                                dtype_name(old_lv.A.dtype)), "whole"
+            if same_PR:
+                # rebuild A and inv_diag (on the old plans and eig estimate
+                # where the pattern held), graft the old P/R unchanged.
+                # Structural SmoothedP/R embed the A they were smoothed
+                # with, and only that A matches the host Ps/Rs the coarse
+                # operators were built through: keep it
                 lv, row = _level_task(
                     l, is_coarsest, csr_levels, Ps, Rs, None, opts, dtype,
-                    device, use_dense,
-                    {l: _DoneFuture(reuse_eigs[l])} if l in reuse_eigs
-                    else None, timer, skip_transfers=True)
-                return dataclasses.replace(lv, P=old_lv.P, R=old_lv.R), row
-        return _level_task(l, is_coarsest, csr_levels, Ps, Rs, structs, opts,
-                           dtype, device, use_dense, eig_futures, timer)
+                    device, use_dense, kept_eig, timer, skip_transfers=True)
+                return (dataclasses.replace(lv, P=old_lv.P, R=old_lv.R), row,
+                        "values" if l in same_pats else "rebuilt")
+        return (*_level_task(l, is_coarsest, csr_levels, Ps, Rs, structs, opts,
+                             dtype, device, use_dense, eig_futures, timer),
+                "rebuilt")
 
     if executor is not None and n_lv > 1:
         built = list(executor.map(build_level, range(n_lv)))
     else:
         built = [build_level(l) for l in range(n_lv)]
     levels = []
-    for level, (n, nnz, dens, fmt, dts) in built:
+    if reuse is not None:
+        info.reuse = [how for *_, how in built]
+    for level, (n, nnz, dens, fmt, dts), _ in built:
         levels.append(level)
         info.sizes.append(n)
         info.nnzs.append(nnz)

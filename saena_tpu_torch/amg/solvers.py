@@ -26,6 +26,7 @@ oracle).
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
@@ -223,13 +224,16 @@ def _loop(build, hierarchy: Hierarchy, params: SolveParams, max_iter: int,
           rhs, **kw) -> _g.Loop:
     """The hierarchy's cached loop of ``build`` (one of _pcg, _vcycle_iter,
     _smoother_iter, _cg, _gmres, with its keyword arguments ``kw``), made at
-    its first use."""
+    its first use. The loop's parts see the hierarchy through a weak proxy:
+    the hierarchy holds the loop, and a strong reference back would make a
+    cycle that keeps a dropped hierarchy, its device levels and its graphs
+    until the cyclic collector runs."""
     key = (build.__name__, params, hierarchy.dtype, max_iter,
            *sorted(kw.items()))
     loop = hierarchy.graphs.get(key)
     if loop is None:
-        loop = hierarchy.graphs[key] = build(hierarchy, params, rhs, max_iter,
-                                             **kw)
+        loop = hierarchy.graphs[key] = build(
+            weakref.proxy(hierarchy), params, rhs, max_iter, **kw)
     return loop
 
 

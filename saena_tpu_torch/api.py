@@ -30,7 +30,7 @@ from saena_tpu_torch.core.coo import CooBuilder, remove_boundary_nodes
 from saena_tpu_torch.io.readers import read_matrix, write_bin, write_mtx
 from saena_tpu_torch.ops.formats import device_matrix_from_csr, pad_to
 from saena_tpu_torch.parallel.dist_setup import dist_setup
-from saena_tpu_torch.runtime import resolve_device, resolve_dtype, span
+from saena_tpu_torch.runtime import PhaseTimer, resolve_device, resolve_dtype, span
 from saena_tpu_torch.vector import SaenaVector as Vector
 
 
@@ -287,8 +287,13 @@ class AMG:
             raise NotImplementedError(
                 "lazy updates of a hierarchy built with Options(scale=True)")
 
-    # Under a torch profiler an update is the span saena.update and each
-    # level's Galerkin product in it saena.update.galerkin.
+    # Under a torch profiler an update is the span saena.update; in it each
+    # level's Galerkin product is saena.update.galerkin (and the phase
+    # saena.setup.galerkin), and the device rebuild saena.update.devicify.
+    # The new SetupInfo's phases and phase_spans are the update's: one
+    # "galerkin" a level (update2, update3), "devicify" around the rebuild
+    # and the rebuild's own phases; SetupInfo.reuse says how each level
+    # was rebuilt.
 
     def update1(self, A_new: Matrix) -> "AMG":
         """Replace only the finest level's values (same pattern)."""
@@ -304,16 +309,17 @@ class AMG:
         self._check_updatable()
         with span("saena.update"):
             old = self._snapshot()
+            timer = PhaseTimer()
             levels = [self._strip_boundary(A_new.csr)]
             for l, (P, R) in enumerate(zip(self.info.Ps, self.info.Rs)):
-                with span("saena.update.galerkin"):
+                with span("saena.update.galerkin"), timer.phase("galerkin"):
                     Ac = galerkin_product(R, levels[-1], P)
                     thre = filter_threshold(
                         l + 1, self.opts.filter_thre, self.opts.filter_max,
                         self.opts.filter_start, self.opts.filter_rate)
                     levels.append(filter_lump(Ac, thre))
             self.info.csr_levels = levels
-            self._redevicify(old)
+            self._redevicify(old, timer)
         return self
 
     def update3(self, A_new: Matrix) -> "AMG":
@@ -336,16 +342,17 @@ class AMG:
                 return self
             if D.nnz > 0.25 * max(1, csr.nnz):
                 return self.update2(A_new)
+            timer = PhaseTimer()
             levels = [csr]
             for l, (P, R, Ac_old) in enumerate(zip(
                     self.info.Ps, self.info.Rs, self.info.csr_levels[1:])):
-                with span("saena.update.galerkin"):
+                with span("saena.update.galerkin"), timer.phase("galerkin"):
                     D = (R @ D @ P).tocsr()
                     Ac = (Ac_old + D).tocsr()
                     Ac.sort_indices()
                     levels.append(Ac)
             self.info.csr_levels = levels
-            self._redevicify(snap)
+            self._redevicify(snap, timer)
         return self
 
     def _snapshot(self):
@@ -354,14 +361,19 @@ class AMG:
         return (self.hierarchy, list(self.info.csr_levels),
                 list(self.info.Ps), list(self.info.Rs))
 
-    def _redevicify(self, old) -> None:
+    def _redevicify(self, old, timer: Optional[PhaseTimer] = None) -> None:
         """Rebuild the device levels after a host-CSR refresh, reusing what
         the refresh left unchanged (devicify's ``reuse``): an update1
         uploads one level's values instead of running each level's Lanczos
-        and strip planning again."""
-        self.hierarchy, info = _hier.devicify(
-            self.info.csr_levels, self.info.Ps, self.info.Rs, self.opts,
-            dtype=self.dtype, device=self.device, reuse=old)
+        and strip planning again. ``timer`` holds the update's phases so
+        far."""
+        timer = timer or PhaseTimer()
+        # devicify hands out timer.seconds and timer.spans themselves, so
+        # the "devicify" phase, closed after it returns, is in them too
+        with span("saena.update.devicify"), timer.phase("devicify"):
+            self.hierarchy, info = _hier.devicify(
+                self.info.csr_levels, self.info.Ps, self.info.Rs, self.opts,
+                dtype=self.dtype, device=self.device, reuse=old, timer=timer)
         info.thetas, info.coarsen_kinds = self.info.thetas, self.info.coarsen_kinds
         info.comm, info.n_shards = self.info.comm, self.info.n_shards
         self.info = info
