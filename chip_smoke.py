@@ -7,7 +7,7 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
 
 1. Card and build: the card's name and power limit, then an nvcc build of
    every CUDA kernel of the port from saena_tpu_torch/csrc/ (DIA, strip,
-   strip8, ELL), all nvcc processes started together. Then the host levels of the
+   strip8, ELL, the row-wise SpGEMM), all nvcc processes started together. Then the host levels of the
    48^3 Poisson interior (the poisson3d_48 golden's levels), whose operators
    give the kernels their main-path shapes. The native host kernels of the
    setup (saena_tpu_torch/_native, g++) must build and load.
@@ -43,6 +43,10 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
      A with ten long rows (spill), a prolongator and a restrictor shape,
      and a block whose x outgrows shared memory and the L1; two launches
      bit-equal, the error a number within its tolerance.
+   - row-wise SpGEMM (K5): both Galerkin products of every coarsening of
+     the 48^3 host levels (A_l P_l, R_l W_l) against the host kernel
+     (_native.spgemm_csr): equal indptr and indices, values equal as
+     uint64, two launches bit-equal.
    - strip / strip8: an operator of one real pair / tile, and layouts cut into small
      chunks so that row blocks are cut (unit counts no multiple of the
      chunk). Every case runs on both paths of its kernel (rows and stream),
@@ -155,7 +159,9 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
        spgemm_blocks of the
        48^3 R A, two calls bit-equal.
    Every kernel must have launched in phase 3 (K4 on (b)'s level-3 A, and
-   with bf16 values on (h)'s twin of it), the strip and strip8 kernels on
+   with bf16 values on (h)'s twin of it; K5 in the setups' Galerkin
+   products, which take the card from amg/galerkin.CARD_MIN_MACS
+   multiply-adds), the strip and strip8 kernels on
    both of their paths, the DIA kernel in both of its designs:
    the tiled kernel for every operator of more than 8 diagonals (level 1),
    the row kernel for the others (level 0), as its plan picks. The DIA
@@ -191,12 +197,15 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    matvec split into its halo extension, K3 per shard (alone and all
    shards in a row) and the stack. K4 on the level-3-shaped ELL, f64 and
    f32, with the L2 flushed before each launch, beside its bound, the plain
-   torch version and cuSPARSE's CSR product.
+   torch version and cuSPARSE's CSR product. K5 on the 48^3 level-2
+   Galerkin products (A_2 P_2, R_2 W_2): the kernel alone, the card route
+   with its transfers, and the host kernel on all cores, beside the bound
+   of the Y stream (12 bytes a multiply-add).
 
 The second-to-last line is one JSON object listing every ported kernel,
 each kernel's bf16-values mode as an entry of its own, and K1's rectangular
-mode and K3 on a shard (the sharded path) likewise, and K4 (no Pallas
-kernel: ``replaces`` null); the last line is
+mode and K3 on a shard (the sharded path) likewise, and K4 and K5 (no
+Pallas kernel: ``replaces`` null); the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when no CUDA card is present or the port's package is missing.
 """
@@ -701,6 +710,103 @@ def check_ell(dev, cases):
                 bad = f"K4 {row}"
         del M64
     return rows, bad
+
+
+def spgemm_cases(info) -> dict:
+    """K5's operands: both Galerkin products of each coarsening of the 48^3
+    host levels (A_l P_l and R_l W_l, W_l the host kernel's A_l P_l), by
+    "L<l>_AP" / "L<l>_RW"."""
+    from saena_tpu_torch import _native
+
+    cases = {}
+    for l, (P, R) in enumerate(zip(info.Ps, info.Rs)):
+        A = info.csr_levels[l]
+        # the stored P's columns follow the coarse level's reordering,
+        # unsorted; the route sorts them, which changes no bit
+        P = P.sorted_indices()
+        cases[f"L{l}_AP"] = (A, P)
+        cases[f"L{l}_RW"] = (R, _native.spgemm_csr(A, P))
+    return cases
+
+
+def check_spgemm(dev, cases):
+    """K5 against the host kernel on the card: equal indptr and indices,
+    values equal as uint64, two launches bit-equal and counted. Returns
+    (rows, failure or None)."""
+    import torch
+
+    from saena_tpu_torch import _native
+    from saena_tpu_torch.amg.galerkin import spgemm_macs
+    from saena_tpu_torch.ops import csr_spgemm as K
+
+    rows, bad = [], None
+    for case, (X, Y) in cases.items():
+        Z = _native.spgemm_csr(X, Y)
+        Xd, Yd = K.DeviceCsr.from_host(X, dev), K.DeviceCsr.from_host(Y, dev)
+        n0 = K.launches
+        C1, C2 = K.csr_spgemm(Xd, Yd), K.csr_spgemm(Xd, Yd)
+        torch.cuda.synchronize()
+        C = C1.to_host()
+        same = (np.array_equal(C.indptr, Z.indptr.astype(np.int64))
+                and np.array_equal(C.indices, Z.indices)
+                and np.array_equal(C.data.view(np.uint64), Z.data.view(np.uint64)))
+        row = {"case": case, "shape": [X.shape[0], Y.shape[1]], "macs": spgemm_macs(X, Y),
+               "nnz": int(Z.nnz), "windows": K.windows(Y.shape[1])[0],
+               "host_bit_equal": bool(same),
+               "bit_equal": all(torch.equal(a, b) for a, b in (
+                   (C1.indptr, C2.indptr), (C1.indices, C2.indices),
+                   (C1.values.view(torch.int64), C2.values.view(torch.int64)))),
+               "launches": K.launches - n0}
+        rows.append(row)
+        print("  " + json.dumps(row))
+        if bad is None and not (same and row["bit_equal"] and row["launches"] == 4):
+            bad = f"K5 {row}"
+    return rows, bad
+
+
+def time_spgemm(dev, cases) -> list:
+    """K5 on the 48^3 level-2 products beside the host kernel: the kernel
+    alone (count, scan and fill; median of 20 calls by CUDA events, operands
+    on the card), the card route with its transfers (operands up, product
+    back; least of 5) and the host kernel on all cores (least of 5); the
+    bound is the Y stream, 12 bytes a multiply-add, over HBM_BPS."""
+    import statistics
+
+    import torch
+
+    from saena_tpu_torch import _native
+    from saena_tpu_torch.amg.galerkin import spgemm_macs
+    from saena_tpu_torch.ops import csr_spgemm as K
+
+    rows = []
+    for case in ("L2_AP", "L2_RW"):
+        X, Y = cases[case]
+        Xd, Yd = K.DeviceCsr.from_host(X, dev), K.DeviceCsr.from_host(Y, dev)
+        K.csr_spgemm(Xd, Yd)
+        kern = []
+        for _ in range(20):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            K.csr_spgemm(Xd, Yd)
+            e1.record()
+            torch.cuda.synchronize()
+            kern.append(e0.elapsed_time(e1))
+        route, host = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            K.csr_spgemm(K.DeviceCsr.from_host(X, dev), K.DeviceCsr.from_host(Y, dev)).to_host()
+            route.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            _native.spgemm_csr(X, Y)
+            host.append(time.perf_counter() - t)
+        macs = spgemm_macs(X, Y)
+        row = {"case": case, "shape": [X.shape[0], Y.shape[1]], "macs": macs,
+               "ms": statistics.median(kern), "route_ms": min(route) * 1e3,
+               "host_ms": min(host) * 1e3, "bound_ms": 12.0 * macs / HBM_BPS * 1e3}
+        rows.append(row)
+        print("  " + json.dumps(row))
+    return rows
 
 
 # --------------------------------------------------- phase 3: main path --
@@ -2751,6 +2857,7 @@ def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "saena_tpu_torch")):
         return fail(f"the saena_tpu_torch package is not beside {__file__}")
     sys.path.insert(0, ROOT)
+    from saena_tpu_torch.ops import csr_spgemm as spg_mod
     from saena_tpu_torch.ops import cuda_build
     from saena_tpu_torch.ops import dia_spmv as dia_mod
     from saena_tpu_torch.ops import ell_spmv as ell_mod
@@ -2763,6 +2870,7 @@ def main() -> int:
     def zero():
         for mod in counters.values():
             mod.launches = mod.bf16_launches = 0
+        spg_mod.launches = 0
         s1_mod.stream_launches = s8_mod.stream_launches = 0
         s8_mod.interval_launches = 0
         dia_mod.rows_launches = dia_mod.rect_launches = 0
@@ -2776,6 +2884,8 @@ def main() -> int:
         must carry exactly those of operators of at most CHUNK diagonals."""
         out = {k: mod.launches for k, mod in counters.items()}
         out.update({f"{k}/bf16": mod.bf16_launches for k, mod in counters.items()})
+        # K5, the setup's Galerkin products (f64 only: no bf16 mode)
+        out["csr_spgemm"] = spg_mod.launches
         for k, mod in (("strip_spmv", s1_mod), ("strip8_spmv", s8_mod)):
             out[f"{k}/stream"] = mod.stream_launches
             out[f"{k}/rows"] = mod.launches - mod.stream_launches
@@ -2851,6 +2961,11 @@ def main() -> int:
     erows, bad = check_ell(dev, ecases)
     if bad:
         return fail(f"ELL kernel disagrees with its plain version: {bad}")
+    print("[2] row-wise SpGEMM (K5) vs the host kernel, the 48^3 Galerkin products")
+    scases = spgemm_cases(info)
+    srows, bad = check_spgemm(dev, scases)
+    if bad:
+        return fail(f"K5 disagrees with the host kernel: {bad}")
     worst_bf16 = {"dia_spmv": max(r[4] for r in checks if r[3] == "bfloat16")}
     for k in ("strip", "strip8"):
         worst_bf16[f"{k}_spmv"] = max(r[3] for r in gchecks
@@ -3118,6 +3233,9 @@ def main() -> int:
           "read; the 96^3 level 3 reads 68.0 M of 84.2 M at width 4,037), L2 flushed "
           "before each launch, µs; the kernels line's K4 entry is this operator in f64")
     ell_times = time_ell(dev, ecases["L3_like"])
+    print("[4] K5 on the 48^3 level-2 Galerkin products beside the host kernel, ms; "
+          "the kernels line's K5 entry is A_2 P_2")
+    spg_times = time_spgemm(dev, scases)
     consts = fit_constants(dev, ops, grows)
     print("[4] fitted cost constants: " + json.dumps(consts))
     print(f"[4] total {time.perf_counter() - t_start:.1f} s")
@@ -3181,7 +3299,12 @@ def main() -> int:
          "ms": r["us"] * 1e-3, "plain_ms": r["plain_us"] * 1e-3,
          "bound_ms": r["bound_us"] * 1e-3, "bound_by": "bytes",
          "library_ms": r["library_us"] * 1e-3}
-        for r in ell_times if r["dtype"] == "float64"]}))
+        for r in ell_times if r["dtype"] == "float64"] + [
+        {"name": "csr_spgemm", "route": "cuda", "source": "saena_tpu_torch/csrc/csr_spgemm.cu",
+         "replaces": None, "launches": launches["csr_spgemm"], "max_abs_err": 0.0,
+         "ms": r["ms"], "plain_ms": None, "host_ms": r["host_ms"], "route_ms": r["route_ms"],
+         "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None}
+        for r in spg_times[:1]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

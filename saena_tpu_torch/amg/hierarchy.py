@@ -14,8 +14,10 @@ coarsening loop takes a ``coarsen_fn`` hook: the shard-parallel setup
 in there with a bitwise-identical result. ``Options(rap="device")`` computes
 each serial coarsening's Galerkin product with the block-sparse engine of
 ops/bspgemm.py on the hierarchy's device (f64), "host" with the native
-SpGEMM. Each level's Lanczos eig estimate runs on a worker thread behind
-the coarsening of deeper levels, and
+SpGEMM, whose large products take the card's row-wise SpGEMM (K5) on a CUDA
+device, bit for bit the same (amg/galerkin.py; ``SetupInfo.products``
+records each product and where it ran). Each level's Lanczos eig estimate
+runs on a worker thread behind the coarsening of deeper levels, and
 ``devicify`` builds the levels on the same executor, assembled in level
 order. ``devicify(reuse=...)`` is the lazy-update path: it reuses unchanged
 levels, and the eig estimate, format plans and P/R of levels whose pattern
@@ -242,6 +244,10 @@ class SetupInfo:
     # each phase interval, (name, start_s, end_s, thread_id) on
     # time.perf_counter (runtime.PhaseTimer.spans)
     phase_spans: list = dataclasses.field(default_factory=list, repr=False)
+    # each sparse product of the Galerkin phase, a runtime.Product (level,
+    # engine "card" or "host", multiply-adds, seconds), in the order they
+    # ended (PhaseTimer.products)
+    products: list = dataclasses.field(default_factory=list, repr=False)
     upload_bytes: int = 0
     # per level, how a lazy devicify (``reuse=``) built it: "whole" (the
     # old level kept), "values" (A and inv_diag rebuilt on the old plans,
@@ -289,7 +295,19 @@ class SetupInfo:
                 m0, m1, m2, z0, z1, z2 = stats[i]
                 row += f"  ({m0},{m1},{m2})".ljust(26) + f"({z0},{z1},{z2})"
             lines.append(row)
+        share = self.card_mac_share()
+        if share is not None:
+            lines.append(f"galerkin: {len(self.products)} products, "
+                         f"{share:.2f}% of their multiply-adds on the card")
         return "\n".join(lines)
+
+    def card_mac_share(self) -> Optional[float]:
+        """The percentage of the Galerkin products' multiply-adds that ran
+        on the card; None without products."""
+        total = sum(p.macs for p in self.products)
+        if not total:
+            return None
+        return 100.0 * sum(p.macs for p in self.products if p.engine == "card") / total
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -337,7 +355,7 @@ def coarsen_csr(A: sp.csr_matrix, lvl: int, opts: Options, timer: PhaseTimer,
             dev = resolve_device(device)
             Ac = spgemm_blocks(spgemm_blocks(R, A, device=dev), P, device=dev)
         else:
-            Ac = galerkin_product(R, A, P)
+            Ac = galerkin_product(R, A, P, device=device, timer=timer, level=lvl)
     with timer.phase("coarsen_tail"):
         P, R, Ac, agg, struct = coarsen_tail(A, P, R, Ac, agg, lvl, opts)
     return P, R, Ac, last, theta, struct
@@ -462,7 +480,8 @@ def setup(
         for P in p_levels or ():
             R = restriction(P)
             with timer.phase("rap"):
-                Ac = galerkin_product(R, csr_levels[-1], P)
+                Ac = galerkin_product(R, csr_levels[-1], P, device=device,
+                                      timer=timer, level=len(csr_levels) - 1)
             _add_level(P, R, Ac, None, "p", None)
         while len(csr_levels) - 1 < opts.max_level:
             Acur = csr_levels[-1]
@@ -691,6 +710,7 @@ def devicify(
                           inv_sq_diag=inv_sq_diag)
     info.phases = timer.seconds
     info.phase_spans = timer.spans
+    info.products = timer.products
     info.upload_bytes = timer.upload_bytes
     return hierarchy, info
 

@@ -313,7 +313,8 @@ class AMG:
             levels = [self._strip_boundary(A_new.csr)]
             for l, (P, R) in enumerate(zip(self.info.Ps, self.info.Rs)):
                 with span("saena.update.galerkin"), timer.phase("galerkin"):
-                    Ac = galerkin_product(R, levels[-1], P)
+                    Ac = galerkin_product(R, levels[-1], P, device=self.device,
+                                          timer=timer, level=l)
                     thre = filter_threshold(
                         l + 1, self.opts.filter_thre, self.opts.filter_max,
                         self.opts.filter_start, self.opts.filter_rate)

@@ -22,7 +22,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-KERNEL_SOURCES = ("dia_spmv", "strip_spmv", "strip8_spmv", "ell_spmv")
+KERNEL_SOURCES = ("dia_spmv", "strip_spmv", "strip8_spmv", "ell_spmv", "csr_spgemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -546,12 +546,14 @@ def _relabel(X: sp.csr_matrix, need: np.ndarray) -> sp.csr_matrix:
 
 
 def _dist_galerkin(R_slices, A_slices, P_slices, split, pool, meter,
-                   codec: str = "none"):
+                   codec: str = "none", device=None, timer=None, level: int = -1):
     """Ac = R @ (A @ P) — the same product order as galerkin_product — with
     each factor row-sharded and remote operand rows fetched on demand (the
     reference's ring rotation delivers the same rows, matmat_CSC). With
     ``codec="gr"`` every remote window crosses the wire Golomb-Rice
-    compressed, the reference's compressed-matmat mode."""
+    compressed, the reference's compressed-matmat mode. Each shard's
+    product takes galerkin's route for a setup on ``device`` and is
+    recorded in ``timer`` at ``level``."""
     n_c = P_slices[0].shape[1]
 
     def w_task(p):
@@ -561,7 +563,8 @@ def _dist_galerkin(R_slices, A_slices, P_slices, split, pool, meter,
         need = np.unique(Ash.indices)
         Pn = _fetch_rows(P_slices, split, need, p, meter, "spgemm", codec)
         # nt=1: the shard tasks themselves run in parallel on the pool
-        return _spgemm(_relabel(Ash, need), Pn, nt=1)
+        return _spgemm(_relabel(Ash, need), Pn, nt=1, device=device, timer=timer,
+                       level=level)
 
     W_slices = list(pool.map(w_task, range(len(A_slices))))
 
@@ -571,7 +574,8 @@ def _dist_galerkin(R_slices, A_slices, P_slices, split, pool, meter,
             return sp.csr_matrix((Rsh.shape[0], n_c))
         need = np.unique(Rsh.indices)
         Wn = _fetch_rows(W_slices, split, need, q, meter, "spgemm", codec)
-        Ac = _spgemm(_relabel(Rsh, need), Wn, nt=1)
+        Ac = _spgemm(_relabel(Rsh, need), Wn, nt=1, device=device, timer=timer,
+                     level=level)
         Ac.sum_duplicates()
         Ac.sort_indices()
         return Ac
@@ -585,7 +589,8 @@ def _dist_galerkin(R_slices, A_slices, P_slices, split, pool, meter,
 
 
 def coarsen_dist(A: sp.csr_matrix, lvl: int, opts: Options, n_shards: int,
-                 pool, meter: CommMeter, tm: PhaseTimer, codec: str = "none"):
+                 pool, meter: CommMeter, tm: PhaseTimer, codec: str = "none",
+                 device=None):
     """Shard-parallel coarsen_csr: same contract, bitwise-identical output.
     The row split is nnz-balanced per level (repartition_nnz,
     saena_matrix_repart.cpp) — shard boundaries never affect results."""
@@ -621,7 +626,7 @@ def coarsen_dist(A: sp.csr_matrix, lvl: int, opts: Options, n_shards: int,
         R_slices = _dist_transpose(P_slices, split, split_c, meter)
     with tm.phase("rap"):
         Ac_slices = _dist_galerkin(R_slices, A_slices, P_slices, split,
-                                   pool, meter, codec)
+                                   pool, meter, codec, device, tm, lvl)
         P_h = _vstack(P_slices)
         R_h = _vstack(R_slices)
         Ac = _vstack(Ac_slices)
@@ -689,7 +694,7 @@ def dist_setup(
                     Acur.nnz >= dense_serial_thre * n * n:
                 return coarsen_csr(Acur, lvl, o, timer, dev)
             return coarsen_dist(Acur, lvl, o, n_shards, pool, meter, timer,
-                                wire_codec)
+                                wire_codec, dev)
         hier, info = serial_setup(A, opts, dtype=dtype, device=device,
                                   use_dense=use_dense, p_levels=p_levels,
                                   coarsen_fn=fn)

@@ -5,6 +5,7 @@ from __future__ import annotations
 import threading
 import time
 from contextlib import contextmanager, nullcontext
+from typing import NamedTuple
 
 import torch
 import torch.autograd.profiler as _autograd_profiler
@@ -60,6 +61,16 @@ def span(name: str):
     return torch.profiler.record_function(name)
 
 
+class Product(NamedTuple):
+    """One sparse product of a setup's Galerkin phase: the coarsening level
+    it builds from, where it ran ("card" or "host"), its multiply-adds and
+    its wall seconds, transfers included."""
+    level: int
+    engine: str
+    macs: int
+    seconds: float
+
+
 class PhaseTimer:
     """Per-phase wall seconds of one setup, summed across its threads
     (phases overlap, so the sum may exceed the wall time), and the bytes
@@ -67,13 +78,18 @@ class PhaseTimer:
     each ``phase`` interval as (name, start_s, end_s, thread_id) on
     ``time.perf_counter``, the thread id the OS's; while a torch profiler
     records, a phase is also the span ``saena.setup.<name>`` on the thread
-    that runs it."""
+    that runs it. ``products`` keeps each Galerkin product as a Product."""
 
     def __init__(self):
         self.seconds: dict = {}
         self.spans: list = []
+        self.products: list = []
         self.upload_bytes = 0
         self._lock = threading.Lock()
+
+    def add_product(self, level: int, engine: str, macs: int, s: float) -> None:
+        with self._lock:
+            self.products.append(Product(level, engine, macs, s))
 
     def add(self, name: str, s: float) -> None:
         with self._lock:
