@@ -52,11 +52,11 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
      chunk). Every case runs on both paths of its kernel (rows and stream),
      twice, and with x a view that is not 16-byte aligned: the results must
      agree bit for bit, and the tickets must be left zero.
-3. The main path on the card, launch counters zeroed just before each run
-   and read just after. The solves (pCG, solve, solve_smoother, solve_CG)
+3. The main path on the card, each run's kernel launches counted by
+   runtime.launches_of. The solves (pCG, solve, solve_smoother, solve_CG)
    replay CUDA graphs of their loop body, captured at a hierarchy's first
-   solve; the wrappers' counters count a replay's launches as the
-   uncaptured loop makes them.
+   solve; runtime.launches counts a replay's launches as the uncaptured
+   loop makes them.
    (a) the 48^3 Poisson pCG solve through Matrix/AMG
        (Options(remove_boundary=True), so the default shard-parallel host
        setup) with the formats the port's picker chooses on the card. f64
@@ -91,10 +91,7 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    (f) the graph solves of (a) f64 and f32 and (b), each against the same
        loop run uncaptured on the card: equal iterations, history and u bit
        for bit, equal launches by kernel, path and K1 shape; the golden (f64)
-       or rel_res < 1e-8 (f32); the ms of 20 solves of each (median, min,
-       max, CUDA events, after a warm solve), the first solve's capture ms,
-       and the device's busy ms and idle share in one solve of each from a
-       torch.profiler trace (written to chiprun_out/traces/). Then pCG with
+       or rel_res < 1e-8 (f32); the first solve's capture ms. Then pCG with
        direct_solver="CG" (the coarsest CG inside the graph) against the CPU
        twin, the profiles of the f32 hierarchy (profile_matvecs,
        vcycle_breakdown per level, pcg_profile), and a capture
@@ -104,20 +101,18 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
        1e-8 (f64, the phase-(a) hierarchy, a seeded rhs) through graphs
        (an Arnoldi step and a restart boundary each a graph), bit-equal to
        the same loop run uncaptured with its launches, equal iterations and
-       histories at rtol 1e-6 against the CPU twin; the ms of 20 solves of
-       each beside the Python loops that preceded the graph engine.
+       histories at rtol 1e-6 against the CPU twin.
    (h) Options.smooth_dtype: f32 with bf16 twins (the card's picks), the
        same hierarchy forced as in (b) (the level-2 A's twin in strip, the
        level-3 A's in ELL), and
        f64 with f32 twins; each must reach 1e-8 within one iteration of the
        same solve without twins, and every kernel must launch with bf16
-       values; the ms of 20 solves of each beside 20 of the solve without
-       twins.
+       values.
    (i) p-coarsening: A = kron(L, K), L the interior 3-D Poisson on 30^3
        units and K = E E^T / 5 + 2 I (E from --seed), set up on the card with
        modal_block_plevels(27000, 5): kinds p, p, p, then h; pCG in f64 to
        1e-8 against the CPU twin on the same host levels; setup seconds by
-       phase and the solve's spread.
+       phase.
    (j) rap="device" against rap="host" in the 48^3 f64 serial setup:
        equal level sizes, every level within 1e-11 of its max |A|, the
        golden's iterations both ways; rap seconds and block pairs.
@@ -126,9 +121,8 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
        4 and 8 shards with the defaults (replicate_threshold 5000, the
        shrink_comm_ratio rule), each with the golden's iterations and the
        history at rtol 1e-6 against the serial graph solve of (a), its
-       formats and active shards, its launches, the ms of 20 graph solves
-       after a warm one, the capture ms, and the graph solve against the
-       same loop uncaptured (u and history bit for bit, equal launches);
+       formats and active shards, its launches, the capture ms, and the
+       graph solve against the same loop uncaptured (u and history bit for bit, equal launches);
        then at D = 4: sharded_format "ell", "bsr", "strip8" and "dia",
        halo_mode "allgather", compress_halo with a bf16 and an int8_block
        wire, shrink_values (0, 2, 2), a dense ring level, f32 and f32 with
@@ -164,11 +158,11 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    multiply-adds), the strip and strip8 kernels on
    both of their paths, the DIA kernel in both of its designs:
    the tiled kernel for every operator of more than 8 diagonals (level 1),
-   the row kernel for the others (level 0), as its plan picks. The DIA
-   wrapper also counts its launches by (n_pad, ndiag, variant); those
-   counts must add up to its launches, and the timed solves' counts are
-   the launches per solve of phase 4. The strip8 wrapper also counts its
-   launches on interval-mode layouts.
+   the row kernel for the others (level 0), as its plan picks.
+   runtime.launches also counts K1's launches by (n_pad, ndiag, variant);
+   those counts must add up to its launches, and the timed solves' counts
+   are the launches per solve of phase 4. It also counts K3's launches on
+   interval-mode layouts.
 4. Times at the main path's shapes, by CUDA events over graph-replayed
    calls (an empty kernel replayed the same way gives the launch floor):
    kernel, plain version, one cuSPARSE CSR product of the same
@@ -213,6 +207,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+from collections import Counter
 import functools
 import json
 import os
@@ -679,6 +674,7 @@ def check_ell(dev, cases):
 
     from saena_tpu_torch.ops import ell_spmv as K
     from saena_tpu_torch.ops.formats import ell_from_csr
+    from saena_tpu_torch.runtime import launches_of
 
     rows, bad = [], None
     for case, A in cases.items():
@@ -689,8 +685,7 @@ def check_ell(dev, cases):
             x = torch.zeros(Mx.plan.n_x, dtype=cdt, device=dev)
             x[: A.shape[1]] = torch.tensor(
                 np.random.default_rng(5).standard_normal(A.shape[1]), dtype=cdt)
-            n0 = K.launches
-            y1, y2 = Mx.matvec(x), Mx.matvec(x)
+            (y1, y2), made = launches_of(lambda: (Mx.matvec(x), Mx.matvec(x)))
             torch.cuda.synchronize()
             ref = K.ell_spmv_plain(ell_with(Mx, lambda v: v.to(cdt)), x)
             scale = K.ell_spmv_plain(ell_with(Mx, lambda v: v.to(cdt).abs()),
@@ -702,7 +697,7 @@ def check_ell(dev, cases):
                    "err": err,
                    "bit_equal": bool(torch.equal(y1, y2)),
                    "pad_zero": bool((y1[A.shape[0]:] == 0).all()),
-                   "launches": K.launches - n0}
+                   "launches": made["ell"]}
             rows.append(row)
             print("  " + json.dumps(row))
             if bad is None and (not err <= TOL[dname] or not row["bit_equal"]
@@ -738,13 +733,13 @@ def check_spgemm(dev, cases):
     from saena_tpu_torch import _native
     from saena_tpu_torch.amg.galerkin import spgemm_macs
     from saena_tpu_torch.ops import csr_spgemm as K
+    from saena_tpu_torch.runtime import launches_of
 
     rows, bad = [], None
     for case, (X, Y) in cases.items():
         Z = _native.spgemm_csr(X, Y)
         Xd, Yd = K.DeviceCsr.from_host(X, dev), K.DeviceCsr.from_host(Y, dev)
-        n0 = K.launches
-        C1, C2 = K.csr_spgemm(Xd, Yd), K.csr_spgemm(Xd, Yd)
+        (C1, C2), made = launches_of(lambda: (K.csr_spgemm(Xd, Yd), K.csr_spgemm(Xd, Yd)))
         torch.cuda.synchronize()
         C = C1.to_host()
         same = (np.array_equal(C.indptr, Z.indptr.astype(np.int64))
@@ -756,7 +751,7 @@ def check_spgemm(dev, cases):
                "bit_equal": all(torch.equal(a, b) for a, b in (
                    (C1.indptr, C2.indptr), (C1.indices, C2.indices),
                    (C1.values.view(torch.int64), C2.values.view(torch.int64)))),
-               "launches": K.launches - n0}
+               "launches": made["csr_spgemm"]}
         rows.append(row)
         print("  " + json.dumps(row))
         if bad is None and not (same and row["bit_equal"] and row["launches"] == 4):
@@ -835,22 +830,9 @@ def run_solve(solver, dev, golden, label):
     import torch
 
     from saena_tpu_torch import generators
-    from saena_tpu_torch.ops import dia_spmv as dmod
 
-    solver.solve_pCG()                                   # warm solve
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    before, n0 = dict(dmod.shape_launches), dmod.launches
-    e0.record()
-    u, res = solver.solve_pCG()
-    e1.record()
-    torch.cuda.synchronize()
-    # the DIA kernel's launches in the timed solve, by shape, from the
-    # wrapper's own counter
-    per_shape = {f"{k[0]}x{k[1]} {k[2]}": v - before.get(k, 0)
-                 for k, v in sorted(dmod.shape_launches.items())
-                 if v > before.get(k, 0)}
+    (u, res), ms, made = timed(solver.solve_pCG)
+    per_shape = dia_shapes(made)          # K1's launches in the timed solve
     it = res.iters
     rel = float(res.rel_res)
     hist = res.history[: it + 1].cpu().numpy()
@@ -860,12 +842,12 @@ def run_solve(solver, dev, golden, label):
     rep = {"run": label, "dtype": str(solver.dtype), "levels": info.sizes,
            "formats": level_formats(solver.hierarchy), "iters": it,
            "rel_res": rel, "true_res": float(res.true_res),
-           "max_err_vs_solution": err, "solve_ms": e0.elapsed_time(e1),
+           "max_err_vs_solution": err, "solve_ms": ms,
            "all_tensors_on_card": on_card, "dia_launches_per_solve": per_shape}
     print("  " + json.dumps(rep))
-    if sum(per_shape.values()) != dmod.launches - n0:
+    if sum(per_shape.values()) != made["dia"]:
         return rep, (f"DIA launches by shape {per_shape} do not add up to the "
-                     f"{dmod.launches - n0} launches of the solve")
+                     f"{made['dia']} launches of the solve")
     if not on_card:
         return rep, "a hierarchy tensor is not on the card"
     if not np.isfinite(u).all():
@@ -1046,15 +1028,50 @@ ENTRY_POINTS = (("solve", {}), ("solve_pGMRES", {}),
                 ("solve_GMRES", {"max_iter": 30, "precondition": False}))
 
 
-def kernel_launches() -> dict:
-    """The four wrappers' launch counts as they stand."""
-    from saena_tpu_torch.ops import dia_spmv as d
-    from saena_tpu_torch.ops import ell_spmv as e
-    from saena_tpu_torch.ops import strip8_spmv as s8
-    from saena_tpu_torch.ops import strip_spmv as s1
+# what phase 3 must launch, as runtime.launches keys and launch_table's
+# paths: every kernel and its bf16 mode, both designs of K1 and both paths
+# of K2 and K3 (either strip8 mode will do), K1 over a shard's rectangular
+# block and K3 on a shard's view
+MUST_LAUNCH = ("dia", "dia.tiled", "dia.rows", "dia.rect", "dia.bf16",
+               "strip", "strip.rows", "strip.stream", "strip.bf16",
+               "strip8", "strip8.rows", "strip8.stream", "strip8.shard", "strip8.bf16",
+               "ell", "ell.bf16", "csr_spgemm")
 
-    return {"dia_spmv": d.launches, "strip_spmv": s1.launches,
-            "strip8_spmv": s8.launches, "ell_spmv": e.launches}
+
+def launch_table(made) -> dict:
+    """``made`` (a count of runtime.launches) for JSON: a shape key's parts
+    joined by spaces, and the paths that have no key of their own: K1's
+    tiled kernel, K2's and K3's rows path and K3 on general layouts."""
+    out = {k if isinstance(k, str) else " ".join(map(str, k)): made[k]
+           for k in sorted(made, key=str)}
+    out["dia.tiled"] = made["dia"] - made["dia.rows"]
+    for k in ("strip", "strip8"):
+        out[f"{k}.rows"] = made[k] - made[f"{k}.stream"]
+    out["strip8.general"] = made["strip8"] - made["strip8.interval"]
+    return out
+
+
+def dia_shapes(made) -> dict:
+    """K1's launches in ``made`` by shape, "<n_pad>x<ndiag> <variant>"."""
+    keys = sorted(k for k in made if isinstance(k, tuple) and k[0] == "dia")
+    return {f"{k[1]}x{k[2]} {k[3]}": made[k] for k in keys}
+
+
+def launch_failure(made):
+    """None when K1's launches in ``made`` by shape add up to its launches
+    and the row kernel took exactly those of operators of at most CHUNK
+    diagonals, else how they do not."""
+    from saena_tpu_torch.ops.dia_spmv import CHUNK
+
+    shapes = {k: v for k, v in made.items() if isinstance(k, tuple) and k[0] == "dia"}
+    narrow = sum(v for (_, _, nd, _), v in shapes.items() if nd <= CHUNK)
+    if sum(shapes.values()) != made["dia"]:
+        return (f"DIA launches by shape ({sum(shapes.values())}) do not add up "
+                f"to its {made['dia']} launches")
+    if made["dia.rows"] != narrow:
+        return (f"{made['dia.rows']} DIA launches took the row kernel, "
+                f"{narrow} were of operators of at most {CHUNK} diagonals")
+    return None
 
 
 def cpu_twin(solver):
@@ -1093,21 +1110,26 @@ def agree(res, ref):
 
 
 def timed(fn):
-    """(result of fn(), ms by CUDA events, kernel launches) of one call
-    after a warm call."""
+    """(result of fn(), ms by CUDA events, its launches) of one call after
+    a warm call."""
     import torch
+
+    from saena_tpu_torch.runtime import launches_of
 
     fn()
     torch.cuda.synchronize()
-    before = kernel_launches()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    out = fn()
-    e1.record()
+
+    def call():
+        e0.record()
+        out = fn()
+        e1.record()
+        return out
+
+    out, made = launches_of(call)
     torch.cuda.synchronize()
-    after = kernel_launches()
-    return out, e0.elapsed_time(e1), {k: after[k] - before[k] for k in after}
+    return out, e0.elapsed_time(e1), made
 
 
 def entry_points(solver, cpu):
@@ -1124,7 +1146,7 @@ def entry_points(solver, cpu):
     for name, kw in ENTRY_POINTS:
         (u, res), ms, launched = timed(lambda: getattr(solver, name)(tol=1e-8, **kw))
         r = {"entry": name, "dtype": str(solver.dtype), **kw, "iters": res.iters,
-             "rel_res": float(res.rel_res), "ms": ms, "launches": launched}
+             "rel_res": float(res.rel_res), "ms": ms, "launches": launch_table(launched)}
         if not np.isfinite(u).all():
             bad = bad or f"{name} ({solver.dtype}): non-finite solution"
         if cpu is not None:
@@ -1181,7 +1203,7 @@ def lazy_updates(solver, cpu):
         _, ref = cpu.solve_pCG()
         r = {"update": name, "update_s": upd_s, "iters": res.iters,
              "cpu_iters": ref.iters, "rel_res": float(res.rel_res),
-             "solve_ms": ms, "launches": launched,
+             "solve_ms": ms, "launches": launch_table(launched),
              "formats": level_formats(H1),
              "recaptured": fresh and any(L.graphs is not None
                                          for L in H1.graphs.values())}
@@ -1207,8 +1229,6 @@ def lazy_updates(solver, cpu):
 
 # ------------------------------------------------ phase 3f: graph solves --
 
-SPREAD_REPS = 20                    # solves timed per kind and loop
-
 
 def eager_pcg(H, rhs, **kw):
     """pCG with its loop body called directly on the card, no graph: the
@@ -1218,59 +1238,22 @@ def eager_pcg(H, rhs, **kw):
     return solvers._solve(solvers._pcg, H, rhs, graphs=False, **kw)
 
 
-def launch_delta(fn):
-    """(fn(), the launches it made by counter and by K1 and K4 shape)."""
-    from saena_tpu_torch.amg.graphs import counts
-
-    (i0, s0), out, (i1, s1) = counts(), fn(), counts()
-    d = {f"{m.__name__.rsplit('.', 1)[1]}.{a}": i1[(m, a)] - v
-         for (m, a), v in i0.items()}
-    # by shape: K1's as "<n_pad>x<ndiag> <variant>", K4's with its name first
-    for m, after in s1.items():
-        name = "" if m.__name__.endswith("dia_spmv") else f"{m.__name__.rsplit('.', 1)[1]} "
-        d.update({f"{name}{'x'.join(map(str, k[:-1]))} {k[-1]}": v - s0[m].get(k, 0)
-                  for k, v in after.items() if v != s0[m].get(k, 0)})
-    return out, d
-
-
-def spread(fn, reps: int = SPREAD_REPS) -> dict:
-    """ms of ``reps`` calls of ``fn`` after a warm call, each by CUDA
-    events: median, min, max."""
-    import torch
-
-    fn()
-    ms = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        torch.cuda.synchronize()
-        ms.append(e0.elapsed_time(e1))
-    return {"median_ms": float(np.median(ms)), "min_ms": min(ms),
-            "max_ms": max(ms)}
-
-
-def graph_solve(solver, label, golden, logdir):
+def graph_solve(solver, label, golden):
     """Phase 3f on the solver's hierarchy: the pCG solve through graphs
     against the same loop uncaptured (equal iterations, bit-equal history
-    and u, equal launches), the golden or the f32 bound, the spread of
-    SPREAD_REPS solves of each, the capture time and the device-idle share
-    of one solve of each from a profiler trace. Returns (row, failure or
-    None)."""
-    from saena_tpu_torch import profiling
-    from saena_tpu_torch.amg import solvers
+    and u, equal launches), the golden or the f32 bound, and the capture
+    time. Returns (row, failure or None)."""
+    from saena_tpu_torch.runtime import launches_of
 
     H = solver.hierarchy
-    (ug, rg), lg = launch_delta(solver.solve_pCG)
-    (ue, re_), le = launch_delta(lambda: solver._run(eager_pcg))
+    (ug, rg), lg = launches_of(solver.solve_pCG)
+    (ue, re_), le = launches_of(lambda: solver._run(eager_pcg))
     loop = H.graphs[("_pcg", solver.params, H.dtype, solver.opts.max_iter)]
     it = rg.iters
     row = {"run": label, "dtype": str(solver.dtype), "iters": it,
            "eager_iters": re_.iters, "rel_res": float(rg.rel_res),
-           "capture_ms": loop.capture_ms, "launches_graph": lg,
-           "launches_eager": le}
+           "capture_ms": loop.capture_ms, "launches_graph": launch_table(lg),
+           "launches_eager": launch_table(le)}
     bad = None
     if rg.iters != re_.iters:
         bad = f"graph {rg.iters} != uncaptured {re_.iters} iterations"
@@ -1280,7 +1263,7 @@ def graph_solve(solver, label, golden, logdir):
         d = np.max(np.abs(ug - ue)) / np.max(np.abs(ue))
         bad = f"graph and uncaptured solves differ (u by {d:.3e} relative)"
     elif lg != le:
-        bad = f"launches a solve: graph {lg} != uncaptured {le}"
+        bad = f"launches a solve: graph {dict(lg)} != uncaptured {dict(le)}"
     elif golden is not None:
         gh = np.asarray(golden["history"])
         hist = rg.history[: it + 1].cpu().numpy()
@@ -1288,16 +1271,6 @@ def graph_solve(solver, label, golden, logdir):
             bad = f"graph solve off the golden: {it} iterations, {hist}"
     elif not (float(rg.rel_res) < 1e-8 and it <= 100):
         bad = f"f32 graph solve: rel_res {float(rg.rel_res):.3e} after {it}"
-    row["eager"] = spread(lambda: solver._run(eager_pcg))
-    row["graph"] = spread(solver.solve_pCG)
-    for kind, fn in (("eager", lambda: solver._run(eager_pcg)),
-                     ("graph", solver.solve_pCG)):
-        _, path = profiling.trace(fn, os.path.join(logdir, label),
-                                  f"{kind}_pCG", H.device)
-        busy = row[f"{kind}_trace"] = profiling.device_busy(path, f"{kind}_pCG")
-        # the profiler's own host cost widens the traced window; the
-        # device's busy time against the untraced median is the other view
-        busy["idle_vs_median"] = 1.0 - busy["busy_ms"] / row[kind]["median_ms"]
     print("  " + json.dumps(row))
     return row, bad
 
@@ -1315,7 +1288,7 @@ def coarse_cg(solver, cpu):
         solver.params = cpu.params = saved
     row = {"entry": "solve_pCG", "direct_solver": "CG", "iters": res.iters,
            "cpu_iters": ref.iters, "rel_res": float(res.rel_res), "ms": ms,
-           "launches": launched}
+           "launches": launch_table(launched)}
     print("  " + json.dumps(row))
     return row, agree(res, ref) or (None if np.isfinite(u).all() else "non-finite u")
 
@@ -1364,10 +1337,6 @@ def profiles(solver):
 
 # ----------------------------- phase 3g-3j: FGMRES, twins, p-levels, rap --
 
-# the times of the FGMRES Python loops that preceded the graph engine (one
-# solve after a warm one, f64, 48^3; NVIDIA H100 80GB HBM3, 700.00 W;
-# PERF.md §6), printed beside this run's graph solves
-PYTHON_LOOP_GMRES_MS = {"GMRES": 93.91, "pGMRES": 52.74}
 # phase 3g's loops: (label, solve_GMRES keyword arguments)
 GMRES_RUNS = (("GMRES", {"max_iter": 30, "precondition": False}),
               ("pGMRES", {"precondition": True}))
@@ -1378,9 +1347,9 @@ def fgmres_graphs(solver, cpu):
     30 steps without a preconditioner, and pFGMRES to 1e-8, each through
     graphs against the same loop uncaptured (equal iterations, bit-equal
     history and u, equal launches) and against the CPU twin (equal
-    iterations, histories at rtol 1e-6); the ms of SPREAD_REPS solves of
-    each. Returns (rows, failure or None)."""
+    iterations, histories at rtol 1e-6). Returns (rows, failure or None)."""
     from saena_tpu_torch.amg import solvers
+    from saena_tpu_torch.runtime import launches_of
 
     saved = solver._rhs
     rhs = np.random.default_rng(11).standard_normal(saved.size)
@@ -1394,8 +1363,8 @@ def fgmres_graphs(solver, cpu):
                 precondition=kw["precondition"], **kk), **k)
         run_kw = {k: v for k, v in kw.items() if k == "max_iter"}
         graph = lambda: solver.solve_GMRES(tol=1e-8, **kw)
-        (ug, rg), lg = launch_delta(graph)
-        (ue, re_), le = launch_delta(lambda: eager(tol=1e-8, **run_kw))
+        (ug, rg), lg = launches_of(graph)
+        (ue, re_), le = launches_of(lambda: eager(tol=1e-8, **run_kw))
         _, ref = cpu.solve_GMRES(tol=1e-8, **kw)
         it = rg.iters
         key = ("_gmres", solver.params, solver.hierarchy.dtype,
@@ -1405,8 +1374,8 @@ def fgmres_graphs(solver, cpu):
         row = {"run": label, "dtype": str(solver.dtype), **kw, "iters": it,
                "eager_iters": re_.iters, "cpu_iters": ref.iters,
                "rel_res": float(rg.rel_res), "capture_ms": loop.capture_ms,
-               "graphs": len(loop.graphs or ()), "launches_graph": lg,
-               "launches_eager": le}
+               "graphs": len(loop.graphs or ()), "launches_graph": launch_table(lg),
+               "launches_eager": launch_table(le)}
         why = agree(rg, ref)
         if rg.iters != re_.iters:
             why = f"graph {rg.iters} != uncaptured {re_.iters} iterations"
@@ -1415,16 +1384,13 @@ def fgmres_graphs(solver, cpu):
                 re_.history[: it + 1].cpu().numpy())):
             why = "graph and uncaptured solves differ"
         elif lg != le:
-            why = f"launches: graph {lg} != uncaptured {le}"
+            why = f"launches: graph {dict(lg)} != uncaptured {dict(le)}"
         elif label == "pGMRES" and not float(rg.rel_res) < 1e-8:
             why = f"rel_res {float(rg.rel_res):.3e}"
         elif len(loop.graphs or ()) != 4:
             why = "the loop did not replay its four graphs"
         if why:
             bad = bad or f"{label}: {why}"
-        row["graph"] = spread(graph)
-        row["eager"] = spread(lambda: eager(tol=1e-8, **run_kw))
-        row["python_loop_ms"] = PYTHON_LOOP_GMRES_MS[label]
         rows.append(row)
         print("  " + json.dumps(row))
     solver.set_rhs(saved)
@@ -1439,18 +1405,15 @@ def twin_formats(H) -> list:
             for L in H.levels]
 
 
-def twin_solve(solver, label, base):
-    """A warm and a timed pCG solve of a hierarchy with twins, then the ms
-    of SPREAD_REPS solves: rel_res below 1e-8 within one iteration of
-    ``base`` (iterations and spread of the same solve without twins).
-    Returns (row, failure or None)."""
-    base_iters, base_spread = base
+def twin_solve(solver, label, base_iters):
+    """A warm and a timed pCG solve of a hierarchy with twins: rel_res
+    below 1e-8 within one iteration of ``base_iters`` (the same solve
+    without twins). Returns (row, failure or None)."""
     (u, res), ms, launched = timed(solver.solve_pCG)
     row = {"run": label, "dtype": str(solver.dtype),
            "twins": twin_formats(solver.hierarchy), "iters": res.iters,
            "iters_without_twins": base_iters, "rel_res": float(res.rel_res),
-           "ms": ms, "launches": launched, "graph": spread(solver.solve_pCG),
-           "graph_without_twins": base_spread}
+           "ms": ms, "launches": launch_table(launched)}
     print("  " + json.dumps(row))
     bad = None
     if not (float(res.rel_res) < 1e-8 and abs(res.iters - base_iters) <= 1):
@@ -1485,8 +1448,8 @@ def smooth_dtype_solves(dev, solver32, solver64):
         return s
 
     def base(solver):
-        """Iterations and spread of the solver's solve without twins."""
-        return solver.solve_pCG()[1].iters, spread(solver.solve_pCG)
+        """Iterations of the solver's solve without twins."""
+        return solver.solve_pCG()[1].iters
 
     rows, solvers, bad = [], {}, None
     base32 = base(solver32)
@@ -1540,9 +1503,8 @@ def pcoarsen_solve(dev, seed):
     """Phase 3i: the modal problem set up on the card (f64, the default
     shard-parallel setup) with modal_block_plevels(P_UNITS^3, P_MODES): three
     p-levels, then h; pCG to 1e-8 held against the port's CPU run on the
-    same host levels (kinds, sizes, iterations, histories at rtol 1e-6); the
-    setup seconds by phase and the solve's spread. Returns (row, failure or
-    None)."""
+    same host levels (kinds, sizes, iterations, histories at rtol 1e-6) and
+    the setup seconds by phase. Returns (row, failure or None)."""
     import torch
 
     from saena_tpu_torch import AMG, Matrix, Options
@@ -1572,8 +1534,7 @@ def pcoarsen_solve(dev, seed):
            "setup_phases_s": {k: round(v, 3) for k, v in s.info.phases.items()},
            "sizes": s.info.sizes, "kinds": s.info.coarsen_kinds,
            "formats": s.info.formats, "iters": res.iters, "cpu_iters": ref.iters,
-           "rel_res": float(res.rel_res), "ms": ms, "launches": launched,
-           "spread": spread(s.solve_pCG)}
+           "rel_res": float(res.rel_res), "ms": ms, "launches": launch_table(launched)}
     print("  " + json.dumps(row))
     bad = agree(res, ref)
     kinds = s.info.coarsen_kinds
@@ -1693,21 +1654,23 @@ def sharded_solve(sh, splits, mesh, opts, rhs, graphs=None, tol=1e-8):
                              max_iter=100, graphs=graphs)
 
 
-def sharded_check(label, sh, splits, mesh, opts, rhs, ref_hist, golden, spread_reps):
+def sharded_check(label, sh, splits, mesh, opts, rhs, ref_hist, golden):
     """The sharded pCG on ``sh`` through graphs against the same loop
     uncaptured (equal iterations, u and history bit for bit, equal
     launches), the golden's iterations and the history at rtol 1e-6
     against the serial graph solve (``ref_hist``; None: rel_res < 1e-8 in
-    at most 100 iterations), the spread of ``spread_reps`` graph solves and
-    the capture ms. Returns (row, out of the graph solve, failure or None)."""
-    (ue, ite, r0e, rfe, he), le = launch_delta(
+    at most 100 iterations), and the capture ms. Returns (row, out of the
+    graph solve, its launches, failure or None)."""
+    from saena_tpu_torch.runtime import launches_of
+
+    (ue, ite, r0e, rfe, he), le = launches_of(
         lambda: sharded_solve(sh, splits, mesh, opts, rhs, graphs=False))
-    out, lg = launch_delta(lambda: sharded_solve(sh, splits, mesh, opts, rhs))
+    out, lg = launches_of(lambda: sharded_solve(sh, splits, mesh, opts, rhs))
     ug, itg, r0g, rfg, hg = out
     loop = next(iter(sh.graphs.values()))
     row = {"run": label, "formats": sharded_formats(sh), "iters": itg,
            "rel_res": rfg / r0g, "capture_ms": loop.capture_ms,
-           "launches_graph": lg, "launches_eager": le}
+           "launches_graph": launch_table(lg), "launches_eager": launch_table(le)}
     bad = None
     if not np.isfinite(ug).all():
         bad = "non-finite solution"
@@ -1716,7 +1679,7 @@ def sharded_check(label, sh, splits, mesh, opts, rhs, ref_hist, golden, spread_r
         bad = (f"graph and uncaptured solves differ: {itg} / {ite} iterations, u by "
                f"{np.max(np.abs(ug - ue)):.3e}")
     elif lg != le:
-        bad = f"launches a solve: graph {lg} != uncaptured {le}"
+        bad = f"launches a solve: graph {dict(lg)} != uncaptured {dict(le)}"
     elif ref_hist is not None:
         hist = hg[: itg + 1]
         if itg != golden["iters"] or not np.allclose(hist, ref_hist, rtol=1e-6, atol=0.0):
@@ -1724,11 +1687,8 @@ def sharded_check(label, sh, splits, mesh, opts, rhs, ref_hist, golden, spread_r
                    f"serial solve by {np.max(np.abs(hist / ref_hist[: itg + 1] - 1)):.3e}")
     elif not (rfg / r0g < 1e-8 and itg <= 100):
         bad = f"rel_res {rfg / r0g:.3e} after {itg} iterations"
-    if spread_reps:
-        row["graph"] = spread(lambda: sharded_solve(sh, splits, mesh, opts, rhs),
-                              reps=spread_reps)
     print("  " + json.dumps(row))
-    return row, out, bad
+    return row, out, lg, bad
 
 
 def nccl_world_one(dev, info, eigs, rhs, ref):
@@ -1788,9 +1748,6 @@ def nccl_world_one(dev, info, eigs, rhs, ref):
         u, it, r0, rf, hist = out
         row.update(iters=it, rel_res=rf / r0,
                    u_diff=float(np.max(np.abs(u - ref["u"]))) / float(np.max(np.abs(ref["u"]))))
-        if row["captured"]:
-            row["graph"] = spread(lambda: sharded_solve(sh, splits, mesh, opts, rhs),
-                                  reps=5)
         print("  " + json.dumps(row))
         bad = None
         if it != ref["iters"] or not row["u_diff"] <= 1e-12:
@@ -1870,34 +1827,32 @@ SHARD_OPTIONS = (
 )
 
 
-def sharded_solves(dev, info, golden, serial, zero, read, d4):
+def sharded_solves(dev, info, golden, serial, d4):
     """Phase 3k. ``serial``: (iterations, history) of the serial f64 graph
     solve on the same host levels; ``d4``: phase 2's (hierarchy, splits,
     mesh) at D = SHARD_D, the run at that D. Returns (report, launches of
     the phase, failure or None)."""
+    from collections import Counter
+
     import torch
 
     from saena_tpu_torch import profiling
     from saena_tpu_torch.config import Options
     from saena_tpu_torch.parallel.comm import Mesh
+    from saena_tpu_torch.runtime import launches_of
 
     A, rhs = sharded_problem()
     rep = {"by_D": [], "options": []}
-    total = None
+    total = Counter()
     f64 = torch.float64
 
-    def run(label, sh, splits, mesh, opts, ref_hist, reps):
-        """One run of sharded_check, its launches added to the phase's."""
-        nonlocal total
-        zero()
-        row, out, bad = sharded_check(label, sh, splits, mesh, opts, rhs, ref_hist,
-                                      golden, reps)
-        launched, bad_count = read()
-        total = launched if total is None else {k: total[k] + launched[k] for k in total}
-        return row, out, bad or bad_count
-
-    def per_shape(row):
-        return {k: v for k, v in row["launches_graph"].items() if " " in k}
+    def run(label, sh, splits, mesh, opts, ref_hist):
+        """One run of sharded_check, its launches added to the phase's; K1's
+        launches in its graph solve by shape."""
+        (row, out, lg, bad), made = launches_of(lambda: sharded_check(
+            label, sh, splits, mesh, opts, rhs, ref_hist, golden))
+        total.update(made)
+        return row, out, dia_shapes(lg), bad or launch_failure(made)
 
     eigs = None
     meshes, default = {}, {}
@@ -1911,7 +1866,7 @@ def sharded_solves(dev, info, golden, serial, zero, read, d4):
         meshes[D] = mesh
         eigs = eigs or [lv.eig_max for lv in sh.sharded] + \
             [L.eig_max for L in sh.replicated.levels]
-        row, out, bad = run(f"D={D}", sh, splits, mesh, opts, serial[1], SPREAD_REPS)
+        row, out, shapes, bad = run(f"D={D}", sh, splits, mesh, opts, serial[1])
         row["build_s"] = build_s
         rep["by_D"].append(row)
         if bad:
@@ -1919,18 +1874,18 @@ def sharded_solves(dev, info, golden, serial, zero, read, d4):
         if D == SHARD_D:
             default = {"sh": sh, "splits": splits, "mesh": mesh, "opts": opts,
                        "u": out[0], "iters": out[1], "dtype": f64,
-                       "per_shape": per_shape(row)}
+                       "per_shape": shapes}
             rep["default"] = default
     mesh = meshes[SHARD_D]
     iters = {"default": default["iters"]}
     for label, dname, fmt, kw, rule in SHARD_OPTIONS:
         sh, splits, opts, build_s = sharded_build(info, mesh, getattr(torch, dname),
                                                   eigs, fmt, **kw)
-        row, out, bad = run(label, sh, splits, mesh, opts, None, 0)
+        row, out, shapes, bad = run(label, sh, splits, mesh, opts, None)
         row["build_s"] = build_s
         iters[label] = out[1]
         if label == "f32":
-            rep["f32_per_shape"] = per_shape(row)
+            rep["f32_per_shape"] = shapes
         rep["options"].append(row)
         kinds = [f["A"].split("(")[0] for f in row["formats"][:-1]]
         want = {"ell": "ShardedEll", "bsr": "ShardedBsr", "strip8": "ShardedStrip8",
@@ -1950,16 +1905,19 @@ def sharded_solves(dev, info, golden, serial, zero, read, d4):
                 bad = f"{out[1]} iterations, {rule[1]} {iters[rule[1]]}"
         if bad:
             return rep, total, f"{label}: {bad}"
-    zero()
-    print("  profile_sharded_matvecs, D = 4, f64:")
-    rows = profiling.profile_sharded_matvecs(default["sh"], mesh, n_iter=20)
-    rep["profile"] = rows
-    print("  " + profiling.format_sharded_profile(rows).replace("\n", "\n  "))
-    rep["update1"], bad = sharded_update1(dev, mesh)
-    rep["nccl"], bad2 = nccl_world_one(dev, info, eigs, rhs, default)
-    launched, bad_count = read()
-    total = {k: total[k] + launched[k] for k in total}
-    return rep, total, bad or bad2 or bad_count
+
+    def rest():
+        print("  profile_sharded_matvecs, D = 4, f64:")
+        rows = profiling.profile_sharded_matvecs(default["sh"], mesh, n_iter=20)
+        rep["profile"] = rows
+        print("  " + profiling.format_sharded_profile(rows).replace("\n", "\n  "))
+        rep["update1"], bad = sharded_update1(dev, mesh)
+        rep["nccl"], bad2 = nccl_world_one(dev, info, eigs, rhs, default)
+        return bad or bad2
+
+    bad, made = launches_of(rest)
+    total.update(made)
+    return rep, total, bad or launch_failure(made)
 
 
 def shard_cases(dev, info):
@@ -1996,17 +1954,6 @@ def shard_cases(dev, info):
     geo = S._sharded_strip8_geometry(A2, split2, split2, "exchange")
     gather = {"shard1_L2_A": ("strip8", op.views[1], geo[0][1].tocsr())}
     return sh, splits, mesh, dia, gather
-
-
-def view_launches_per_solve(op, solve) -> int:
-    """K3's launches on the shard views of ``op`` (a ShardedStrip8) in one
-    call of ``solve``, an uncaptured loop: each view's own counter, which
-    K3's wrapper adds to where it launches."""
-    views = [M for M in op.views if M is not None]
-    for M in views:
-        M.launches = 0
-    solve()
-    return sum(M.launches for M in views)
 
 
 def sharded_strip8_breakdown(dev, sh) -> dict:
@@ -2337,10 +2284,10 @@ def api_and_repairs(dev, card):
     from saena_tpu_torch import AMG, Matrix
     from saena_tpu_torch.amg.galerkin import _spgemm
     from saena_tpu_torch.generators import random_symm_matrix
-    from saena_tpu_torch.ops import ell_spmv as ell_mod
     from saena_tpu_torch.ops.bspgemm import spgemm_blocks
     from saena_tpu_torch.ops.formats import ell_from_csr
     from saena_tpu_torch.parallel.comm import Mesh
+    from saena_tpu_torch.runtime import launches_of
 
     mats = []
     for seed in (1, 2):
@@ -2362,9 +2309,8 @@ def api_and_repairs(dev, card):
     A = A.tocsr()
     E = ell_from_csr(A, torch.float64, dev, width_quantile=0.98)
     x = torch.tensor(rng.standard_normal(E.n_pad), dtype=torch.float64, device=dev)
-    k4 = ell_mod.launches
-    y1, y2 = E.matvec(x), E.matvec(x)
-    k4 = ell_mod.launches - k4
+    (y1, y2), made = launches_of(lambda: (E.matvec(x), E.matvec(x)))
+    k4 = made["ell"]
     y_cpu = ell_from_csr(A, torch.float64, "cpu", width_quantile=0.98).matvec(x.cpu())
     ell_err = float((y1.cpu() - y_cpu).abs().max() / y_cpu.abs().max())
 
@@ -2737,11 +2683,11 @@ def solve_gather_ops(solver) -> list:
     return out
 
 
-def launches_per_operator(solver) -> dict:
-    """{id(layout) or id(DIA data): kernel launches in one pCG solve},
-    counted by wrapping the kernels' wrappers for one solve of the
-    uncaptured loop (a graph replay calls no wrapper; phase 3f shows the
-    two launch the same)."""
+def launches_per_operator(solve) -> dict:
+    """{id(layout) or id(DIA data): kernel launches in one call of
+    ``solve``, an uncaptured loop}, counted by wrapping the kernels'
+    wrappers (a graph replay calls no wrapper; phase 3f shows the two
+    launch the same)."""
     import torch
 
     from saena_tpu_torch.ops import formats
@@ -2759,7 +2705,7 @@ def launches_per_operator(solver) -> dict:
 
     s1.strip_spmv, s8.strip8_spmv, formats.dia_spmv = map(counting, saved)
     try:
-        solver._run(eager_pcg)
+        solve()
         torch.cuda.synchronize()
     finally:
         s1.strip_spmv, s8.strip8_spmv, formats.dia_spmv = saved
@@ -2769,7 +2715,7 @@ def launches_per_operator(solver) -> dict:
 def gather_launch_map(solver) -> dict:
     """{(label, kind, perrow, mode): launches in one pCG solve} of every
     strip / strip8 operator of the solver's hierarchy."""
-    per_op = launches_per_operator(solver)
+    per_op = launches_per_operator(lambda: solver._run(eager_pcg))
     return {(label, kind, Mx.perrow, getattr(Mx, "mode", None)): per_op.get(id(Mx), 0)
             for label, kind, Mx, _ in solve_gather_ops(solver)}
 
@@ -2857,54 +2803,18 @@ def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "saena_tpu_torch")):
         return fail(f"the saena_tpu_torch package is not beside {__file__}")
     sys.path.insert(0, ROOT)
-    from saena_tpu_torch.ops import csr_spgemm as spg_mod
     from saena_tpu_torch.ops import cuda_build
     from saena_tpu_torch.ops import dia_spmv as dia_mod
-    from saena_tpu_torch.ops import ell_spmv as ell_mod
-    from saena_tpu_torch.ops import strip8_spmv as s8_mod
-    from saena_tpu_torch.ops import strip_spmv as s1_mod
+    from saena_tpu_torch.runtime import launches_of
 
-    counters = {"dia_spmv": dia_mod, "strip_spmv": s1_mod, "strip8_spmv": s8_mod,
-                "ell_spmv": ell_mod}
+    total = Counter()
 
-    def zero():
-        for mod in counters.values():
-            mod.launches = mod.bf16_launches = 0
-        spg_mod.launches = 0
-        s1_mod.stream_launches = s8_mod.stream_launches = 0
-        s8_mod.interval_launches = 0
-        dia_mod.rows_launches = dia_mod.rect_launches = 0
-        s8_mod.shard_launches = 0
-        dia_mod.shape_launches.clear()
-        ell_mod.shape_launches.clear()
-
-    def read():
-        """(launches by kernel and path, failure or None): the DIA kernel's
-        launches by shape must add up to its launches, and the row kernel
-        must carry exactly those of operators of at most CHUNK diagonals."""
-        out = {k: mod.launches for k, mod in counters.items()}
-        out.update({f"{k}/bf16": mod.bf16_launches for k, mod in counters.items()})
-        # K5, the setup's Galerkin products (f64 only: no bf16 mode)
-        out["csr_spgemm"] = spg_mod.launches
-        for k, mod in (("strip_spmv", s1_mod), ("strip8_spmv", s8_mod)):
-            out[f"{k}/stream"] = mod.stream_launches
-            out[f"{k}/rows"] = mod.launches - mod.stream_launches
-        out["strip8_spmv/interval"] = s8_mod.interval_launches
-        out["strip8_spmv/general"] = s8_mod.launches - s8_mod.interval_launches
-        out["dia_spmv/tiled"] = dia_mod.launches - dia_mod.rows_launches
-        out["dia_spmv/rows"] = dia_mod.rows_launches
-        out["dia_spmv/rect"] = dia_mod.rect_launches
-        out["strip8_spmv/shard"] = s8_mod.shard_launches
-        shapes = dia_mod.shape_launches
-        narrow = sum(v for (_, nd, _), v in shapes.items() if nd <= dia_mod.CHUNK)
-        bad = None
-        if sum(shapes.values()) != dia_mod.launches:
-            bad = (f"DIA launches by shape ({sum(shapes.values())}) do not add up "
-                   f"to its {dia_mod.launches} launches")
-        elif dia_mod.rows_launches != narrow:
-            bad = (f"{dia_mod.rows_launches} DIA launches took the row kernel, "
-                   f"{narrow} were of operators of at most {dia_mod.CHUNK} diagonals")
-        return out, bad
+    def counted(fn):
+        """(fn(), its launches, launch_failure of them); the launches are
+        added to phase 3's."""
+        out, made = launches_of(fn)
+        total.update(made)
+        return out, made, launch_failure(made)
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -2976,9 +2886,8 @@ def main() -> int:
 
     # ---- 3. main path
     print(f"[3a] main path f64, {M}^3, the card's picks (golden {GOLDEN})")
-    zero()
-    solver64, rep64, bad = solve_main_path(dev, torch.float64, golden)
-    launches_a64, bad_count = read()
+    (solver64, rep64, bad), launches_a64, bad_count = counted(
+        lambda: solve_main_path(dev, torch.float64, golden))
     if bad or bad_count:
         return fail(f"f64 main path: {bad or bad_count}")
     if solver64.info.formats[1] != "DiaMatrix":
@@ -2986,32 +2895,29 @@ def main() -> int:
     _, res64 = solver64.solve_pCG()          # phase 3k's serial reference
     serial64 = (res64.iters, res64.history[: res64.iters + 1].cpu().numpy())
     print(f"[3a] main path f32, {M}^3")
-    zero()
-    solver32, rep32, bad = solve_main_path(dev, torch.float32, None)
-    launches_a32, bad_count = read()
+    (solver32, rep32, bad), launches_a32, bad_count = counted(
+        lambda: solve_main_path(dev, torch.float32, None))
     if bad or bad_count:
         return fail(f"f32 main path: {bad or bad_count}")
     per_shape = {"float64": rep64["dia_launches_per_solve"],
                  "float32": rep32["dia_launches_per_solve"]}
     print("[3a] DIA launches per solve by n_pad x ndiag, variant: "
           + json.dumps(per_shape))
-    print(f"[3a] launches: f64 {launches_a64}, f32 {launches_a32}")
+    print(f"[3a] launches: f64 {launch_table(launches_a64)}, "
+          f"f32 {launch_table(launches_a32)}")
     est = pick_estimates(solver32.info, solver32.hierarchy, torch.float32)
     print("[3a] picker estimates (f32, µs): " + json.dumps(est))
     print(f"[3b] forced path f64, {M}^3: Pt strip, Pt^T strip8, level-2 A the other, "
           "level-3 A ELL")
     picker64 = solver64.hierarchy
     forced64 = solver64.hierarchy = forced_hierarchy(solver64)
-    zero()
-    rep_b, bad = run_solve(solver64, dev, golden, "forced")
-    launches_b, bad_count = read()
+    (rep_b, bad), launches_b, bad_count = counted(
+        lambda: run_solve(solver64, dev, golden, "forced"))
     if bad or bad_count:
         return fail(f"forced main path: {bad or bad_count}")
-    print(f"[3b] launches: {launches_b}")
+    print(f"[3b] launches: {launch_table(launches_b)}")
     forced_map = gather_launch_map(solver64)
     solver64.hierarchy = picker64
-    launches = {k: launches_a64[k] + launches_a32[k] + launches_b[k]
-                for k in launches_b}
 
     print(f"[3c] {M}^3 f64 setup on the card's host: default (shard-parallel) "
           "and serial")
@@ -3023,106 +2929,102 @@ def main() -> int:
     t0 = time.perf_counter()
     cpu64 = cpu_twin(solver64)
     print(f"  CPU twin devicified in {time.perf_counter() - t0:.1f} s")
-    zero()
-    entry64, bad = entry_points(solver64, cpu64)
-    entry32, bad32 = entry_points(solver32, None)
-    launches_d, bad_count = read()
+    ((entry64, bad), (entry32, bad32)), launches_d, bad_count = counted(
+        lambda: (entry_points(solver64, cpu64), entry_points(solver32, None)))
     if bad or bad32 or bad_count:
         return fail(f"entry points: {bad or bad32 or bad_count}")
-    print(f"[3d] launches: {launches_d}")
+    print(f"[3d] launches: {launch_table(launches_d)}")
     loops = {k[0] for k, L in solver64.hierarchy.graphs.items() if L.graphs}
     if not {"_vcycle_iter", "_smoother_iter", "_cg", "_gmres"} <= loops:
         return fail(f"phase 3d's loops did not run through graphs: {sorted(loops)}")
     print(f"[3e] lazy updates on the card, f64, against the same sequence on the CPU")
     saved64 = [(sv, sv.hierarchy, sv._bound) for sv in (solver64, cpu64)]
-    zero()
-    lazy, bad = lazy_updates(solver64, cpu64)
-    launches_e, bad_count = read()
+    (lazy, bad), launches_e, bad_count = counted(lambda: lazy_updates(solver64, cpu64))
     if bad or bad_count:
         return fail(f"lazy updates: {bad or bad_count}")
-    print(f"[3e] launches: {launches_e}")
+    print(f"[3e] launches: {launch_table(launches_e)}")
     for sv, H, bound in saved64:                 # back to the phase-3a state
         sv.hierarchy, sv._bound = H, bound
 
-    print(f"[3f] the {M}^3 solves as graph replays against the uncaptured loop "
-          f"({SPREAD_REPS} solves each), the coarsest CG in the graph, a "
-          f"failed capture, the f32 profiles; {card}")
+    print(f"[3f] the {M}^3 solves as graph replays against the uncaptured loop, "
+          f"the coarsest CG in the graph, a failed capture, the f32 profiles; {card}")
     t3f = time.perf_counter()
-    logdir = os.path.join(ROOT, "chiprun_out", "traces")
-    zero()
-    graph_rows = []
-    for solver, H, label, g in ((solver64, picker64, "f64_picker", golden),
-                                (solver32, solver32.hierarchy, "f32_picker", None),
-                                (solver64, forced64, "f64_forced", golden)):
-        solver.hierarchy = H
-        row, bad = graph_solve(solver, label, g, logdir)
-        graph_rows.append(row)
+
+    def graph_phase():
+        for solver, H, label, g in ((solver64, picker64, "f64_picker", golden),
+                                    (solver32, solver32.hierarchy, "f32_picker", None),
+                                    (solver64, forced64, "f64_forced", golden)):
+            solver.hierarchy = H
+            _, bad = graph_solve(solver, label, g)
+            if bad:
+                return f"graph solve {label}: {bad}"
+        solver64.hierarchy = picker64
+        _, bad = coarse_cg(solver64, cpu64)
         if bad:
-            return fail(f"graph solve {label}: {bad}")
-    solver64.hierarchy = picker64
-    cg_row, bad = coarse_cg(solver64, cpu64)
+            return f"pCG with the coarsest CG in the graph: {bad}"
+        profiles(solver32)
+        msg, bad = capture_failure(dev)
+        if bad:
+            return f"capture failure: {bad}"
+        print(f"  a failed capture raised: {msg}")
+        return None
+
+    bad, launches_f, bad_count = counted(graph_phase)
     if bad:
-        return fail(f"pCG with the coarsest CG in the graph: {bad}")
-    prof32 = profiles(solver32)
-    msg, bad = capture_failure(dev)
-    if bad:
-        return fail(f"capture failure: {bad}")
-    print(f"  a failed capture raised: {msg}")
-    launches_f, bad_count = read()
+        return fail(bad)
     if bad_count:
         return fail(f"graph solves: {bad_count}")
-    print(f"[3f] launches: {launches_f}; wall {time.perf_counter() - t3f:.1f} s")
+    print(f"[3f] launches: {launch_table(launches_f)}; "
+          f"wall {time.perf_counter() - t3f:.1f} s")
 
     print(f"[3g] FGMRES(30) and pFGMRES through graphs against the uncaptured "
-          f"loop and the CPU, f64, {M}^3 ({SPREAD_REPS} solves each); {card}")
+          f"loop and the CPU, f64, {M}^3; {card}")
     t0 = time.perf_counter()
-    zero()
-    gmres_rows, bad = fgmres_graphs(solver64, cpu64)
-    launches_g, bad_count = read()
+    (gmres_rows, bad), launches_g, bad_count = counted(lambda: fgmres_graphs(solver64, cpu64))
     if bad or bad_count:
         return fail(f"FGMRES graphs: {bad or bad_count}")
-    print(f"[3g] launches: {launches_g}; wall {time.perf_counter() - t0:.1f} s")
+    print(f"[3g] launches: {launch_table(launches_g)}; "
+          f"wall {time.perf_counter() - t0:.1f} s")
     print(f"[3h] {M}^3 solves with smooth_dtype twins (f32 + bf16 picker and "
           "forced, f64 + f32), each against the same solve without twins")
     t0 = time.perf_counter()
-    zero()
-    twin_rows, twins, bad = smooth_dtype_solves(dev, solver32, solver64)
-    launches_h, bad_count = read()
+    (twin_rows, twins, bad), launches_h, bad_count = counted(
+        lambda: smooth_dtype_solves(dev, solver32, solver64))
     if bad or bad_count:
         return fail(f"smooth_dtype solves: {bad or bad_count}")
-    if min(launches_h[f"{k}/bf16"] for k in counters) <= 0:
-        return fail(f"a kernel never launched with bf16 values: {launches_h}")
-    print(f"[3h] launches: {launches_h}; wall {time.perf_counter() - t0:.1f} s")
+    if min(launches_h[f"{k}.bf16"] for k in ("dia", "strip", "strip8", "ell")) <= 0:
+        return fail(f"a kernel never launched with bf16 values: {launch_table(launches_h)}")
+    print(f"[3h] launches: {launch_table(launches_h)}; "
+          f"wall {time.perf_counter() - t0:.1f} s")
     print(f"[3i] p-coarsening: kron(3-D Poisson {P_UNITS}^3 units, a {P_MODES}x"
           f"{P_MODES} SPD modal block), seed {args.seed}, f64, against the CPU")
     t0 = time.perf_counter()
-    zero()
-    p_row, bad = pcoarsen_solve(dev, args.seed)
-    launches_i, bad_count = read()
+    (p_row, bad), launches_i, bad_count = counted(lambda: pcoarsen_solve(dev, args.seed))
     if bad or bad_count:
         return fail(f"p-coarsening: {bad or bad_count}")
-    print(f"[3i] launches: {launches_i}; wall {time.perf_counter() - t0:.1f} s")
+    print(f"[3i] launches: {launch_table(launches_i)}; "
+          f"wall {time.perf_counter() - t0:.1f} s")
     print(f"[3j] rap=\"device\" against rap=\"host\", {M}^3 f64 serial setup")
     t0 = time.perf_counter()
-    zero()
-    rap_row, bad = rap_device(dev, golden)
-    launches_j, bad_count = read()
+    (rap_row, bad), launches_j, bad_count = counted(lambda: rap_device(dev, golden))
     if bad or bad_count:
         return fail(f"rap=device: {bad or bad_count}")
-    print(f"[3j] launches: {launches_j}; wall {time.perf_counter() - t0:.1f} s")
+    print(f"[3j] launches: {launch_table(launches_j)}; "
+          f"wall {time.perf_counter() - t0:.1f} s")
     print(f"[3k] the sharded solve (saena_tpu_torch/parallel/), {M}^3 f64 on "
           f"{', '.join(map(str, SHARD_COUNTS))} shards of the card against the serial "
           f"graph solve; the options at D = {SHARD_D}; the sharded profile; update1 "
           f"through update_sharded_values; an NCCL group of world size 1; {card}")
     t0 = time.perf_counter()
-    rep3k, launches_k, bad = sharded_solves(dev, info, golden, serial64, zero, read,
+    rep3k, launches_k, bad = sharded_solves(dev, info, golden, serial64,
                                             (sh4, splits4, mesh4))
+    total.update(launches_k)
     if bad:
         return fail(f"sharded solves: {bad}")
-    print(f"[3k] K1 rectangular launches {launches_k['dia_spmv/rect']}, K3 launches "
-          f"on shards {launches_k['strip8_spmv/shard']}; launches: {launches_k}; "
+    print(f"[3k] K1 rectangular launches {launches_k['dia.rect']}, K3 launches "
+          f"on shards {launches_k['strip8.shard']}; launches: {launch_table(launches_k)}; "
           f"wall {time.perf_counter() - t0:.1f} s")
-    if min(launches_k["dia_spmv/rect"], launches_k["strip8_spmv/shard"]) <= 0:
+    if min(launches_k["dia.rect"], launches_k["strip8.shard"]) <= 0:
         return fail("K1 in rectangular mode or K3 on a shard never launched on the "
                     "sharded path")
     print(f"[3l] the products over a mesh (ops/spgemm.py, ops/bspgemm.py's ring): the "
@@ -3130,29 +3032,26 @@ def main() -> int:
           f"card against the host product; examples/gemm.py's sweep; AMG.matmat(mesh=); "
           f"the fixed-order ELL spill and block sums; {card}")
     t0 = time.perf_counter()
-    zero()
-    _, bad = galerkin_on_mesh(dev, card)
+
+    def products():
+        for what, check in (("Galerkin product on a mesh", galerkin_on_mesh),
+                            ("gemm sweep", gemm_sweep),
+                            ("matmat(mesh=) and the repairs", api_and_repairs)):
+            _, bad = check(dev, card)
+            if bad:
+                return f"{what}: {bad}"
+        return None
+
+    bad, launches_l, bad_count = counted(products)
     if bad:
-        return fail(f"Galerkin product on a mesh: {bad}")
-    _, bad = gemm_sweep(dev, card)
-    if bad:
-        return fail(f"gemm sweep: {bad}")
-    _, bad = api_and_repairs(dev, card)
-    if bad:
-        return fail(f"matmat(mesh=) and the repairs: {bad}")
-    launches_l, bad_count = read()
+        return fail(bad)
     if bad_count:
         return fail(f"products over a mesh: {bad_count}")
-    print(f"[3l] launches (the products run no kernel of the port): {launches_l}; "
-          f"wall {time.perf_counter() - t0:.1f} s")
-    for extra in (launches_d, launches_e, launches_f, launches_g, launches_h,
-                  launches_i, launches_j, launches_k, launches_l):
-        launches = {k: launches[k] + extra[k] for k in launches}
+    print(f"[3l] launches (the products run no kernel of the port): "
+          f"{launch_table(launches_l)}; wall {time.perf_counter() - t0:.1f} s")
+    launches = launch_table(total)
     print(f"[3] launches on the main path: {launches}")
-    # every kernel, both paths of K2 and K3 (either strip8 mode will do), K1
-    # over a shard's rectangular block and K3 on a shard's view
-    if min(v for k, v in launches.items()
-           if not k.endswith(("/interval", "/general"))) <= 0:
+    if min(launches[k] for k in MUST_LAUNCH) <= 0:
         return fail(f"a kernel or a path never launched on the main path: {launches}")
 
     # ---- 4. times
@@ -3178,7 +3077,7 @@ def main() -> int:
                     "forced": forced_map.get(key, 0)}))
     print("[4] every strip / strip8 operator of the f32 solve (phase 3a), "
           "with its launches per solve")
-    per_op = launches_per_operator(solver32)
+    per_op = launches_per_operator(lambda: solver32._run(eager_pcg))
     solve_rows = [time_gather(dev, label, kind, Mx, A_host,
                               launches_per_solve=per_op.get(id(Mx), 0))
                   for label, kind, Mx, A_host in solve_gather_ops(solver32)]
@@ -3191,10 +3090,10 @@ def main() -> int:
     from saena_tpu_torch.ops.strip_spmv import StripMatrix
     s_bf = twins["f32_bf16"]
     picker_bf = s_bf.hierarchy
-    per_bf = launches_per_operator(s_bf)
+    per_bf = launches_per_operator(lambda: s_bf._run(eager_pcg))
     bf_rows = time_dia_bf16(dev, s_bf, per_bf)
     s_bf.hierarchy = twins["f32_bf16_forced"]
-    per_forced = launches_per_operator(s_bf)
+    per_forced = launches_per_operator(lambda: s_bf._run(eager_pcg))
     s_bf.hierarchy = picker_bf
     for label, H, per in (("L2_A_twin", picker_bf, per_bf),
                           ("L2_A_twin_forced", twins["f32_bf16_forced"], per_forced)):
@@ -3205,7 +3104,7 @@ def main() -> int:
                                    launches_per_solve=per.get(id(T), 0)))
     # K4's bf16 mode: phase 2's error and phase 3h's launches
     if min(r["launches_per_solve"] for r in bf_rows) <= 0 or \
-            {r["kernel"] for r in bf_rows} != set(counters) - {"ell_spmv"}:
+            {r["kernel"] for r in bf_rows} != {"dia_spmv", "strip_spmv", "strip8_spmv"}:
         return fail("a bf16 operator of phase 4 never launched in its solve: "
                     + json.dumps([(r["kernel"], r["launches_per_solve"]) for r in bf_rows]))
     print(f"[4] the sharded path's shapes (phase 3k, D = {SHARD_D}): K1 rectangular on "
@@ -3219,8 +3118,9 @@ def main() -> int:
     op2 = d["sh"].sharded[2].A if len(d["sh"].sharded) > 2 else None
     per_solve = 0
     if isinstance(getattr(op2, "views", None), tuple):
-        per_solve = view_launches_per_solve(op2, lambda: sharded_solve(
+        per_view = launches_per_operator(lambda: sharded_solve(
             d["sh"], d["splits"], d["mesh"], d["opts"], rhs_k, graphs=False))
+        per_solve = sum(per_view.get(id(M), 0) for M in op2.views if M is not None)
     _, view, block = gather_shards["shard1_L2_A"]
     shard_row = time_gather(dev, "shard1_L2_A", "strip8", view, block,
                             launches_per_solve=per_solve)
@@ -3268,8 +3168,9 @@ def main() -> int:
                    and dn == "float32")
 
     def entry(name, source, replaces, r, err):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[name],
+        # "strip8_spmv/shard" counts as launches["strip8.shard"]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches[name.replace("_spmv", "").replace("/", ".")],
                 "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"]}
@@ -3294,7 +3195,7 @@ def main() -> int:
               "saena_tpu/ops/pallas_strip8_spmv.py:96", shard_row,
               gerr["shard1_L2_A"])] + [
         {"name": "ell_spmv", "route": "cuda", "source": "saena_tpu_torch/csrc/ell_spmv.cu",
-         "replaces": None, "launches": launches["ell_spmv"],
+         "replaces": None, "launches": launches["ell"],
          "max_abs_err": max(r["err"] for r in erows if r["dtype"] == "float64"),
          "ms": r["us"] * 1e-3, "plain_ms": r["plain_us"] * 1e-3,
          "bound_ms": r["bound_us"] * 1e-3, "bound_by": "bytes",

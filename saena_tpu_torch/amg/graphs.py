@@ -25,10 +25,10 @@ While a torch profiler records, ``run`` marks its host work with spans
 part as ``saena.graph.init`` / ``.step`` / ``.restart`` / ``.fini``, and
 each read of ``go`` as ``saena.graph.go``.
 
-The kernels' wrappers count their launches in Python, which a replay does
-not run. Each graph keeps the counts its capture added, the counters are
-put back, and every replay adds them again, so the counts are those of the
-same loop run without graphs.
+The kernels' wrappers record their launches in ``runtime.launches``, which
+a replay does not run: each graph keeps the launches its capture recorded,
+takes them off, and adds them again at every replay, so the counts are
+those of the same loop run without graphs.
 """
 from __future__ import annotations
 
@@ -40,18 +40,8 @@ import types
 
 import torch
 
-from saena_tpu_torch.ops import cuda_build, dia_spmv, ell_spmv, strip8_spmv, strip_spmv
-from saena_tpu_torch.runtime import span
-
-# the wrappers' launch counters: (module, integer counters), and their
-# launches by shape, one dict a wrapper
-_COUNTERS = ((dia_spmv, ("launches", "rows_launches", "bf16_launches",
-                         "rect_launches")),
-             (strip_spmv, ("launches", "stream_launches", "bf16_launches")),
-             (strip8_spmv, ("launches", "stream_launches", "interval_launches",
-                            "bf16_launches", "shard_launches")),
-             (ell_spmv, ("launches", "bf16_launches")))
-_SHAPES = (dia_spmv, ell_spmv)
+from saena_tpu_torch.ops import cuda_build
+from saena_tpu_torch.runtime import launches, launches_of, span
 
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RESTART = 2    # the value of ``go`` when a loop's restart part is next
@@ -103,38 +93,6 @@ class GraphCaptureError(RuntimeError):
     """A part of a solver loop could not be captured into a CUDA graph."""
 
 
-def counts() -> tuple:
-    """The wrappers' launch counters as they stand."""
-    return ({(m, a): getattr(m, a) for m, names in _COUNTERS for a in names},
-            {m: dict(m.shape_launches) for m in _SHAPES})
-
-
-def restore(saved) -> None:
-    """Set the launch counters back to ``saved`` (from ``counts``)."""
-    ints, shapes = saved
-    for (m, a), v in ints.items():
-        setattr(m, a, v)
-    for m, d in shapes.items():
-        m.shape_launches.clear()
-        m.shape_launches.update(d)
-
-
-def _delta(before, after) -> tuple:
-    ints = {k: after[0][k] - v for k, v in before[0].items() if after[0][k] != v}
-    shapes = {m: {k: v - before[1][m].get(k, 0) for k, v in d.items()
-                  if v != before[1][m].get(k, 0)} for m, d in after[1].items()}
-    return ints, shapes
-
-
-def _add(delta) -> None:
-    ints, shapes = delta
-    for (m, a), v in ints.items():
-        setattr(m, a, getattr(m, a) + v)
-    for m, d in shapes.items():
-        for k, v in d.items():
-            m.shape_launches[k] = m.shape_launches.get(k, 0) + v
-
-
 def _where(exc: BaseException) -> str:
     """The deepest frame of the port's own code (this module aside) in the
     exception chain: the op that broke the capture."""
@@ -152,11 +110,11 @@ def _where(exc: BaseException) -> str:
 
 class Graph:
     """``fn`` captured on the card's current device, replayed by calling
-    the object; the launch counters move as if ``fn`` had run."""
+    the object; ``runtime.launches`` moves as if ``fn`` had run."""
 
     def __init__(self, fn, what: str):
         dev = torch.cuda.current_device()
-        before = counts()
+        before = launches.copy()
         side = _side_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         self.graph = torch.cuda.CUDAGraph()
@@ -178,19 +136,18 @@ class Graph:
                 finally:
                     self.graph.capture_end()
         except RuntimeError as e:
-            restore(before)
             raise GraphCaptureError(
                 f"capturing {what} failed at {_where(e)}: {e}") from e
         finally:
+            self.delta = launches - before
+            launches.subtract(self.delta)
             if collecting:
                 gc.enable()
             torch.cuda.current_stream(dev).wait_stream(side)
-        self.delta = _delta(before, counts())
-        restore(before)
 
     def __call__(self) -> None:
         self.graph.replay()
-        _add(self.delta)
+        launches.update(self.delta)
 
 
 class Loop:
@@ -212,17 +169,15 @@ class Loop:
         """Warm up each part once on a side stream (lazy module loads,
         library handles), then capture it. The warm-up runs on the static
         state, which the first replay of ``init`` sets anew; its launches
-        are taken off the counters."""
+        are taken off ``runtime.launches``."""
         t0, built0 = time.perf_counter(), cuda_build.build_s
         dev = torch.cuda.current_device()
-        before = counts()
         side = _side_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            for part in self.parts:
-                part()
+            _, warm = launches_of(lambda: [part() for part in self.parts])
+        launches.subtract(warm)
         torch.cuda.current_stream(dev).wait_stream(side)
-        restore(before)
         self.graphs = tuple(Graph(p, f"{self.name} {w}") for p, w in
                             zip(self.parts, ("init", "step", "fini", "restart")))
         torch.cuda.synchronize(dev)

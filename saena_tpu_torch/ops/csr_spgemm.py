@@ -20,8 +20,8 @@ for every p) or, on those dense rows, at +0.0.
 
 `csr_spgemm` launches the CUDA kernel (csrc/csr_spgemm.cu) for operands on
 the card and raises for any other; `csr_spgemm_plain` is the same function
-in torch ops on the CPU, for the CPU tests. `launches` counts the kernel's
-launches (two a product: the count and the fill pass).
+in torch ops on the CPU, for the CPU tests. Launches are recorded in
+`runtime.launches` ("csr_spgemm": two a product, the count and the fill pass).
 """
 from __future__ import annotations
 
@@ -35,9 +35,9 @@ import scipy.sparse as sp
 import torch
 
 from saena_tpu_torch.ops import cuda_build
+from saena_tpu_torch.runtime import launched
 
 MAX_WINDOW = 25_600   # output columns a block holds (shared with csrc/csr_spgemm.cu)
-launches = 0          # kernel launches made by csr_spgemm
 
 # one product at a time on the card: the shard-parallel setup calls in from
 # several pool threads
@@ -192,7 +192,6 @@ def _check(X: DeviceCsr, Y: DeviceCsr) -> torch.device:
 
 def csr_spgemm(X: DeviceCsr, Y: DeviceCsr) -> DeviceCsr:
     """X @ Y on the card through K5, bit for bit the host kernel's product."""
-    global launches
     dev = _check(X, Y)
     n, m = X.shape[0], Y.shape[1]
     nwin, win = windows(m)
@@ -207,6 +206,7 @@ def csr_spgemm(X: DeviceCsr, Y: DeviceCsr) -> DeviceCsr:
             Y.indices.data_ptr(), win_nnz.data_ptr(), row_flops.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"csr_spgemm: count launch failed with CUDA error {rc}")
+        launched("csr_spgemm")
         offs = torch.zeros(n * nwin + 1, dtype=torch.int64, device=dev)
         offs[1:] = torch.cumsum(win_nnz, 0)
         nnz = int(offs[-1])
@@ -218,5 +218,5 @@ def csr_spgemm(X: DeviceCsr, Y: DeviceCsr) -> DeviceCsr:
             row_flops.data_ptr(), zmin, indices.data_ptr(), values.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"csr_spgemm: fill launch failed with CUDA error {rc}")
-        launches += 2
+        launched("csr_spgemm")
         return DeviceCsr(offs[::nwin].contiguous(), indices, values, (n, m))

@@ -29,11 +29,7 @@ pure function of (offsets, n_pad, dtype, SM count):
 
 `DiaMatrix` keeps its plan, so a launch plans nothing; a test forces a
 configuration by passing ``plan=dia_plan(..., config=..., groups=...)``.
-`launches` counts kernel launches, `rows_launches` those of the row kernel,
-`bf16_launches` those with bf16 data, `rect_launches` those over a
-rectangular block (x longer than n_pad or x_row0 > 0: a shard's block over
-its halo-extended x), `shape_launches` all of them by (n_pad, ndiag,
-variant).
+Launches are recorded in `runtime.launches` ("dia", its routes and shapes).
 """
 from __future__ import annotations
 
@@ -47,13 +43,9 @@ import torch.nn.functional as F
 
 from saena_tpu_torch.ops import cuda_build
 from saena_tpu_torch.ops.chunks import H100_SMS, sm_count
+from saena_tpu_torch.runtime import launched
 
 LANES = 128
-launches = 0          # kernel launches made by dia_spmv
-rows_launches = 0     # of which the row kernel's
-bf16_launches = 0     # of which with bf16 data
-rect_launches = 0     # of which over a rectangular block (len(x) > n_pad or x_row0 > 0)
-shape_launches = {}   # launches by (n_pad, ndiag, variant), variant as in _variant
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 
@@ -360,7 +352,6 @@ def _variant(rhs, dinv, add_x) -> str:
 
 
 def _dia_cuda(data, x, offsets, rhs, dinv, c, add_x, x_row0, offsets_dev, plan):
-    global launches, rows_launches, bf16_launches, rect_launches
     dev = data.device
     if data.dtype not in _DTYPE_CODE:
         raise TypeError(f"dia_spmv: data dtype {data.dtype} not supported "
@@ -421,10 +412,8 @@ def _dia_cuda(data, x, offsets, rhs, dinv, c, add_x, x_row0, offsets_dev, plan):
                           float(c), x0, y.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"dia_spmv: kernel launch failed with CUDA error {rc}")
-    launches += 1
-    rows_launches += plan.config == "rows"
-    bf16_launches += data.dtype == torch.bfloat16
-    rect_launches += m_pad != n_pad or x0 != 0
-    key = (n_pad, ndiag, _variant(rhs, dinv, add_x))
-    shape_launches[key] = shape_launches.get(key, 0) + 1
+    # rect: a rectangular block, a shard's over its halo-extended x
+    launched("dia", (n_pad, ndiag, _variant(rhs, dinv, add_x)),
+             rows=plan.config == "rows", bf16=data.dtype == torch.bfloat16,
+             rect=m_pad != n_pad or x0 != 0)
     return y

@@ -17,11 +17,8 @@ slots below the tile's ``tile_bounds`` entry; the tiles are shared out to
 one block per SM by ``ell_schedule``, balanced by their slot counts (the
 matrix's ``EllPlan``, built with it). x is gathered through the read-only
 path. bf16 values compute with an f32 x and return an f32 y, as the other
-kernels' do.
-
-`launches` counts kernel launches, `bf16_launches` those with bf16 values,
-`shape_launches` all of them by (n_pad, n_x, width); graph replays add to
-them (amg/graphs.py).
+kernels' do. Launches are recorded in `runtime.launches` ("ell", "ell.bf16"
+and ("ell", n_pad, n_x, width)).
 """
 from __future__ import annotations
 
@@ -36,13 +33,11 @@ import torch
 from saena_tpu_torch.ops import cuda_build
 from saena_tpu_torch.ops.chunks import sm_count
 from saena_tpu_torch.ops.dia_spmv import compute_dtype
+from saena_tpu_torch.runtime import launched
 
 TILE = 32            # rows of a tile (shared with csrc/ell_spmv.cu)
 TILE_COST = 64       # a tile's fixed cost in the schedule, in slots
 BOUND_SLOTS = 256    # slots ``tile_bounds`` reads at a time
-launches = 0         # kernel launches made by ell_spmv
-bf16_launches = 0    # of which with bf16 values
-shape_launches = {}  # launches by (n_pad, n_x, width)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 
@@ -185,7 +180,6 @@ def ell_spmv(A, x: torch.Tensor) -> torch.Tensor:
 
 
 def _ell_cuda(A, x):
-    global launches, bf16_launches
     dev, plan = A.vals.device, A.plan
     if A.dtype not in _DTYPE_CODE:
         raise TypeError(f"ell_spmv: values dtype {A.dtype} not supported "
@@ -221,8 +215,5 @@ def _ell_cuda(A, x):
                 plan.n_blocks, *spill, x.data_ptr(), y.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"ell_spmv: kernel launch failed with CUDA error {rc}")
-    launches += 1
-    bf16_launches += A.dtype == torch.bfloat16
-    key = (n_pad, n_x, width)
-    shape_launches[key] = shape_launches.get(key, 0) + 1
+    launched("ell", (n_pad, n_x, width), bf16=A.dtype == torch.bfloat16)
     return y

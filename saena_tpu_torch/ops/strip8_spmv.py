@@ -35,15 +35,11 @@ the port's planner builds; the kernel then skips the tile_list lookup.
 
 `strip8_spmv` launches the CUDA kernel (csrc/strip8_spmv.cu) for tensors
 on the card, on the layout's path, and runs `strip8_spmv_plain` for
-tensors on the CPU; it never falls back from one to the other. `launches`
-counts kernel launches, `stream_launches` those of the stream path,
-`interval_launches` those of interval-mode layouts, `bf16_launches` those
-with bf16 values (an f32 x and y: the smoothers' twin of an operator,
-Options.smooth_dtype), `shard_launches` those on a shard's view (a layout
-with ``shard`` set, parallel/sharded.py). A layout's own ``launches``
-counts the launches made on it; a graph replay does not add to it (the
-module's counters it does, amg/graphs.py), so it is read around a loop
-run uncaptured.
+tensors on the CPU; it never falls back from one to the other. bf16 values
+take an f32 x and y (the smoothers' twin of an operator,
+Options.smooth_dtype). Launches are recorded in `runtime.launches`
+("strip8" and its routes; "strip8.shard" on a shard's view, a layout with
+``shard`` set, parallel/sharded.py).
 
 The cost constants (``STRIP8_NS_PER_TILE``) are H100 measurements from
 ``chip_smoke.py`` phase 4; see PERF.md.
@@ -70,15 +66,11 @@ from saena_tpu_torch.ops.formats import (
     scatter_value_dtype,
     to_device,
 )
+from saena_tpu_torch.runtime import launched
 
 GROUP8 = 64           # tile-count padding unit (JAX layout)
 _PERROW8 = (1, 2, 4)
 MODES = ("general", "interval")
-launches = 0          # kernel launches made by strip8_spmv, both paths
-stream_launches = 0   # of which the stream path's
-interval_launches = 0  # of which on interval-mode layouts
-bf16_launches = 0      # of which with bf16 values
-shard_launches = 0     # of which on a shard's view (Strip8Matrix.shard set)
 
 # values dtype -> the kernel's code: f32 values with an f32 x and
 # accumulator, bf16 values with an f32 x and accumulator, f64 throughout
@@ -129,13 +121,13 @@ class Strip8Matrix:
     (the rows path), tile_list (n_real,) int32, tile_identity, unit_strips
     (n_real * 8,) int32, rbt_ptr (n_rb + 1,) int32 numpy and, on the stream
     path, chunks (its work tables). ``shard``: the shard whose view this
-    is (None: not a shard's); ``launches``: the launches made on it."""
+    is (None: not a shard's)."""
 
     def __init__(self, idx, vals, strips, gather_idx, shape, nnz, perrow=1,
                  mode="general", n_cols_pad=0, n_out=0, shard=None):
         if mode not in MODES:
             raise ValueError(f"strip8 mode {mode!r}")
-        self.shard, self.launches = shard, 0
+        self.shard = shard
         self.idx, self.vals = idx, vals
         self.strips, self.gather_idx = strips, gather_idx
         self.shape, self.nnz = tuple(shape), int(nnz)
@@ -240,7 +232,6 @@ def strip8_spmv(A: Strip8Matrix, x: torch.Tensor) -> torch.Tensor:
 
 
 def _strip8_cuda(A: Strip8Matrix, x):
-    global launches, stream_launches, interval_launches, bf16_launches, shard_launches
     dev = A.vals.device
     if A.dtype not in _DTYPE_CODE:
         raise TypeError(f"strip8_spmv: values dtype {A.dtype} not supported "
@@ -306,12 +297,8 @@ def _strip8_cuda(A: Strip8Matrix, x):
                 A.n_split, part.data_ptr(), A.counter.data_ptr(), y.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"strip8_spmv: kernel launch failed with CUDA error {rc}")
-    launches += 1
-    stream_launches += C is not None
-    interval_launches += A.mode == "interval"
-    bf16_launches += A.dtype == torch.bfloat16
-    shard_launches += A.shard is not None
-    A.launches += 1
+    launched("strip8", stream=C is not None, interval=A.mode == "interval",
+             bf16=A.dtype == torch.bfloat16, shard=A.shard is not None)
     return y
 
 

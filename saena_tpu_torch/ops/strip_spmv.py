@@ -26,10 +26,9 @@ launches go to one stream.
 
 `strip_spmv` launches the CUDA kernel (csrc/strip_spmv.cu) for tensors on
 the card, on the layout's path, and runs `strip_spmv_plain` for tensors on
-the CPU; it never falls back from one to the other. `launches` counts
-kernel launches, `stream_launches` those of the stream path,
-`bf16_launches` those with bf16 values (an f32 x and y: the smoothers'
-twin of an operator, Options.smooth_dtype).
+the CPU; it never falls back from one to the other. bf16 values take an
+f32 x and y (the smoothers' twin of an operator, Options.smooth_dtype).
+Launches are recorded in `runtime.launches` ("strip" and its routes).
 
 Cost constants (``STRIP_NS_BY_PERROW``, ``STRIP_LAUNCH_S``) are H100
 measurements from ``chip_smoke.py`` phase 4; see PERF.md.
@@ -56,13 +55,11 @@ from saena_tpu_torch.ops.formats import (
     scatter_value_dtype,
     to_device,
 )
+from saena_tpu_torch.runtime import launched
 
 GROUP = 64                 # pairs per superblock padding unit (JAX layout)
 _PERROW_CANDIDATES = (1, 2, 4, 8, 16)
 _KRB_CANDIDATES = (1, 2, 4, 8, 16, 32)
-launches = 0               # kernel launches made by strip_spmv, both paths
-stream_launches = 0        # of which the stream path's
-bf16_launches = 0          # of which with bf16 values
 
 # values dtype -> the kernel's code: f32 values with an f32 x and
 # accumulator, bf16 values with an f32 x and accumulator, f64 throughout
@@ -221,7 +218,6 @@ def strip_spmv(A: StripMatrix, x: torch.Tensor) -> torch.Tensor:
 
 
 def _strip_cuda(A: StripMatrix, x):
-    global launches, stream_launches, bf16_launches
     dev = A.vals.device
     if A.dtype not in _DTYPE_CODE:
         raise TypeError(f"strip_spmv: values dtype {A.dtype} not supported "
@@ -282,9 +278,7 @@ def _strip_cuda(A: StripMatrix, x):
                 y.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"strip_spmv: kernel launch failed with CUDA error {rc}")
-    launches += 1
-    stream_launches += C is not None
-    bf16_launches += A.dtype == torch.bfloat16
+    launched("strip", stream=C is not None, bf16=A.dtype == torch.bfloat16)
     return y
 
 

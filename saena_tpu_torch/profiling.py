@@ -31,6 +31,7 @@ from saena_tpu_torch.amg import graphs as _g
 from saena_tpu_torch.amg.cycles import coarsest_solve, vcycle
 from saena_tpu_torch.amg.hierarchy import dtype_name
 from saena_tpu_torch.amg.smoothers import smooth
+from saena_tpu_torch.runtime import launches, launches_of
 
 
 def device_name(device) -> str:
@@ -42,17 +43,15 @@ def graph_ms(fn, reps: int = 100, replays: int = 20) -> float:
     """Device ms per call: ``reps`` calls captured in one CUDA graph and
     replayed ``replays`` times, timed with CUDA events (no host launch gaps
     between calls). The launches of the warm-up and the capture are taken
-    off the kernels' counters, and the replays add none."""
-    before = _g.counts()
+    off ``runtime.launches``, and the replays add none."""
     dev = torch.cuda.current_device()
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
+        _, warm = launches_of(lambda: [fn() for _ in range(3)])
+    launches.subtract(warm)
     torch.cuda.current_stream(dev).wait_stream(side)
     g = _g.Graph(lambda: [fn() for _ in range(reps)], "a timed stage")
-    _g.restore(before)
     for _ in range(max(1, replays // 4)):     # warm: clocks up after host work
         g.graph.replay()
     torch.cuda.synchronize()

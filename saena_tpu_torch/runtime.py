@@ -1,14 +1,54 @@
-"""Device and dtype resolution, the setup phase timer, and the spans that
-mark the port's layers in a torch.profiler trace."""
+"""Device and dtype resolution, the setup phase timer, the spans that
+mark the port's layers in a torch.profiler trace, and the count of the
+hand-written kernels' launches.
+
+``launches`` counts every launch of the five kernels in the process, by
+key: the kernel (``"dia"``, ``"strip"``, ``"strip8"``, ``"ell"``,
+``"csr_spgemm"``); ``"<kernel>.<route>"`` for the launches that took a
+route (``"dia.rows"``: the row kernel, ``"dia.rect"``: a rectangular block,
+``"strip.stream"`` / ``"strip8.stream"``: the stream path,
+``"strip8.interval"``: an interval-mode layout, ``"strip8.shard"``: a
+shard's view, ``"<kernel>.bf16"``: bf16 values); and K1's and K4's shapes,
+``("dia", n_pad, ndiag, variant)`` and ``("ell", n_pad, n_x, width)``. A
+wrapper records a launch with ``launched`` once the kernel has been
+launched. A graph replay runs no wrapper: amg/graphs.py adds each replay's
+launches, so the counts are those of the same loop run uncaptured.
+``launches_of`` gives the launches made by one call."""
 from __future__ import annotations
 
 import threading
 import time
+from collections import Counter
 from contextlib import contextmanager, nullcontext
 from typing import NamedTuple
 
 import torch
 import torch.autograd.profiler as _autograd_profiler
+
+
+launches: Counter = Counter()
+_LAUNCH_LOCK = threading.Lock()      # the setup's pool threads launch K5
+
+
+def launched(kernel: str, shape: tuple = (), **routes: bool) -> None:
+    """Count one launch of ``kernel``: under each route that is true, and
+    under ``(kernel, *shape)`` when a shape is given."""
+    with _LAUNCH_LOCK:
+        launches[kernel] += 1
+        for route, took in routes.items():
+            if took:
+                launches[f"{kernel}.{route}"] += 1
+        if shape:
+            launches[(kernel, *shape)] += 1
+
+
+def launches_of(fn):
+    """(fn(), the launches it made, a Counter)."""
+    with _LAUNCH_LOCK:
+        before = launches.copy()
+    out = fn()
+    with _LAUNCH_LOCK:
+        return out, launches - before
 
 
 def resolve_device(device=None) -> torch.device:

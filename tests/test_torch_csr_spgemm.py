@@ -17,8 +17,8 @@ On a card (marker ``cuda``; skips without one): K5 against the host kernel
 as uint64 on the same operands, at the widest window, across windows and on
 a product shaped like the 96^3 level-3 A P at fewer rows; two launches
 bit-equal; and a card-routed 48^3 ``set_matrix`` and ``update2`` whose
-levels, P and R equal the host-routed ones bit for bit, the counters
-counting.
+levels, P and R equal the host-routed ones bit for bit, its launches
+counted in runtime.launches.
 """
 import numpy as np
 import pytest
@@ -32,6 +32,7 @@ from saena_tpu_torch.config import Options
 from saena_tpu_torch.core.coo import remove_boundary_nodes
 from saena_tpu_torch.ops import csr_spgemm as K
 from saena_tpu_torch.ops.csr_spgemm import DeviceCsr
+from saena_tpu_torch.runtime import launches_of
 
 
 def _rand(n, m, d, seed, zeros=0.0, neg_zeros=0.0, empty_rows=0):
@@ -167,17 +168,19 @@ def test_canonical_form():
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
-    n0 = K.launches
     X, Y = CASES["sparse"]()
     Xc, Yc = DeviceCsr.from_host(X, "cpu"), DeviceCsr.from_host(Y, "cpu")
-    with pytest.raises(ValueError, match="CUDA"):
-        K.csr_spgemm(Xc, Yc)
-    with pytest.raises(TypeError):
-        K.csr_spgemm(X, Y)
     Y32 = DeviceCsr(Yc.indptr, Yc.indices, Yc.values.float(), Yc.shape)
-    with pytest.raises(ValueError, match="float64"):
-        K.csr_spgemm(Xc, Y32)
-    assert K.launches == n0
+
+    def refused():
+        with pytest.raises(ValueError, match="CUDA"):
+            K.csr_spgemm(Xc, Yc)
+        with pytest.raises(TypeError):
+            K.csr_spgemm(X, Y)
+        with pytest.raises(ValueError, match="float64"):
+            K.csr_spgemm(Xc, Y32)
+
+    assert not launches_of(refused)[1]
 
 
 def test_the_order_within_a_y_row_does_not_change_the_bits():
@@ -213,13 +216,13 @@ def test_cpu_setup_takes_the_host_for_every_product(shards):
     its level and multiply-adds, and its levels are the host kernel's."""
     from saena_tpu_torch.parallel.dist_setup import dist_setup
 
-    n0 = K.launches
     A = _poisson(14)
     if shards:
-        info = dist_setup(A, Options(), dtype=torch.float64, device="cpu", n_shards=2,
-                          tail_rows=64)[1]
+        info, made = launches_of(lambda: dist_setup(
+            A, Options(), dtype=torch.float64, device="cpu", n_shards=2, tail_rows=64)[1])
     else:
-        info = th.setup(A, Options(), dtype=torch.float64, device="cpu")[1]
+        info, made = launches_of(
+            lambda: th.setup(A, Options(), dtype=torch.float64, device="cpu")[1])
     levels = {p.level for p in info.products}
     assert levels == set(range(len(info.sizes) - 1))
     assert all(p.engine == "host" and p.macs > 0 and p.seconds >= 0 for p in info.products)
@@ -232,7 +235,7 @@ def test_cpu_setup_takes_the_host_for_every_product(shards):
         W = _native.spgemm_csr(A0, P0)
         assert [p.macs for p in info.products[:2]] == [gal.spgemm_macs(A0, P0),
                                                        gal.spgemm_macs(R0, W)]
-    assert K.launches == n0
+    assert not made
 
 
 def test_share_is_none_without_products():
@@ -288,10 +291,9 @@ def test_cuda_k5_is_the_host_kernel_bit_for_bit(name):
     dev = _card()
     X, Y = CARD_CASES[name]()
     Z = _native.spgemm_csr(X, Y)
-    n0 = K.launches
-    C1, C2 = _on_card(X, Y, dev), _on_card(X, Y, dev)
+    (C1, C2), made = launches_of(lambda: (_on_card(X, Y, dev), _on_card(X, Y, dev)))
     torch.cuda.synchronize(dev)
-    assert K.launches - n0 == 4
+    assert made["csr_spgemm"] == 4
     assert_bit_equal(C1.to_host(), Z)
     for a, b in zip((C1.indptr, C1.indices, C1.values), (C2.indptr, C2.indices, C2.values)):
         assert torch.equal(a.view(torch.int64) if a.dtype == torch.float64 else a,
@@ -347,11 +349,10 @@ def test_cuda_card_routed_setup_and_update2_equal_the_host_routed(monkeypatch):
         return first, amg.info
 
     for shards in (-1, 0):
-        n0 = K.launches
-        card_set, card_upd = run(0, shards)
-        launched = K.launches - n0
-        host_set, host_upd = run(2**62, shards)
-        assert K.launches - n0 == launched
+        (card_set, card_upd), made = launches_of(lambda: run(0, shards))
+        launched = made["csr_spgemm"]
+        (host_set, host_upd), made = launches_of(lambda: run(2**62, shards))
+        assert made["csr_spgemm"] == 0
         n_card = sum(p.engine == "card" for p in card_set.products + card_upd.products)
         assert launched == 2 * n_card and n_card > 0
         assert card_set.card_mac_share() == 100.0

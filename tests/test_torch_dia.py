@@ -22,6 +22,7 @@ from saena_tpu_torch.generators import band_matrix, laplacian3D
 from saena_tpu_torch.ops import dia_spmv as dmod
 from saena_tpu_torch.ops import formats as tf
 from saena_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_plain
+from saena_tpu_torch.runtime import launches_of
 from test_torch_dia_plan import L1_OFFSETS
 
 
@@ -170,19 +171,19 @@ def test_bf16_data_plain_matches_pallas_interpret(jx):
 
 
 def test_dia_matrix_uses_plain_on_cpu_without_counting():
-    """On CPU tensors the wrapper runs the plain version, and the launch
-    counter counts kernel launches only."""
+    """On CPU tensors the wrapper runs the plain version, and
+    runtime.launches counts kernel launches only."""
     A = _poisson(8)
     D = tf.dia_from_csr(A, torch.float64, "cpu")
     x, rhs, dinv = (torch.from_numpy(v) for v in
                     _vectors(A.shape[0], D.n_pad, D.n_pad, 5))
-    before = dmod.launches
-    y = D.fused_update(x, rhs, dinv=dinv, c=0.5)
+    (y, yv), made = launches_of(
+        lambda: (D.fused_update(x, rhs, dinv=dinv, c=0.5), D.matvec(x)))
     ref = dia_spmv_plain(D.data, x, D.offsets, rhs=rhs, dinv=dinv, c=0.5,
                          add_x=True)
     assert torch.equal(y, ref)
-    assert torch.equal(D.matvec(x), dia_spmv_plain(D.data, x, D.offsets))
-    assert dmod.launches == before
+    assert torch.equal(yv, dia_spmv_plain(D.data, x, D.offsets))
+    assert not made
 
 
 def test_wrapper_raises_on_other_devices():
@@ -231,10 +232,9 @@ def test_cuda_kernel_matches_plain(variant, dname, case, config):
                     _vectors(n, D.n_pad, D.n_pad, 6))
     kw = dict(rhs=rhs if has_rhs else None, dinv=dinv if has_dinv else None,
               c=c, add_x=add_x)
-    before = dmod.launches
-    yk = dia_spmv(D.data, x, D.offsets, plan=plan, **kw)
+    yk, made = launches_of(lambda: dia_spmv(D.data, x, D.offsets, plan=plan, **kw))
     torch.cuda.synchronize()
-    assert dmod.launches == before + 1
+    assert made["dia"] == 1
     assert torch.equal(yk, dia_spmv(D.data, x, D.offsets, plan=plan, **kw))
     kw_u = dict(kw, rhs=_unaligned(rhs) if has_rhs else None,
                 dinv=_unaligned(dinv) if has_dinv else None)

@@ -15,7 +15,8 @@ kernel that rounded x or its products to bf16 would read some 2e-3);
 square with spill, rectangular, one whose x outgrows shared memory and
 the L1, and a level-3-shaped operator (about 20 K rows of 500-4,900
 entries, ``level3_like``); two launches bit-equal, a launch inside a
-captured CUDA graph, the counters, and a refused dtype.
+captured CUDA graph, the launches in runtime.launches, and a refused
+dtype.
 """
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ import torch
 
 from saena_tpu_torch.ops import ell_spmv as K
 from saena_tpu_torch.ops.formats import EllMatrix, ell_from_csr, pad_to
+from saena_tpu_torch.runtime import launches_of
 
 F64 = torch.float64
 
@@ -266,14 +268,11 @@ def test_cuda_two_launches_bit_equal_and_counted():
                   (_skewed(), torch.bfloat16)):
         M = ell_from_csr(A, dt, dev, width_quantile=0.98)
         x = _x(A.shape[1], 2, K.compute_dtype(dt)).to(dev)
-        n0, b0 = K.launches, K.bf16_launches
-        shapes0 = dict(K.shape_launches)
-        y1, y2 = M.matvec(x), M.matvec(x)
+        (y1, y2), made = launches_of(lambda: (M.matvec(x), M.matvec(x)))
         assert torch.equal(y1, y2)
-        assert K.launches - n0 == 2
-        assert K.bf16_launches - b0 == (2 if dt == torch.bfloat16 else 0)
-        key = (M.n_pad, pad_to(A.shape[1]), M.vals.shape[0])
-        assert K.shape_launches[key] - shapes0.get(key, 0) == 2
+        assert made["ell"] == 2
+        assert made["ell.bf16"] == (2 if dt == torch.bfloat16 else 0)
+        assert made[("ell", M.n_pad, pad_to(A.shape[1]), M.vals.shape[0])] == 2
 
 
 @pytest.mark.cuda
@@ -286,14 +285,13 @@ def test_cuda_launch_inside_a_graph():
     x = _x(A.shape[1], 3).to(dev)
     ref = M.matvec(x)
     out = torch.empty_like(ref)
-    n0 = K.launches
-    g = graphs.Graph(lambda: out.copy_(M.matvec(x)), "an ELL matvec")
-    assert K.launches == n0                      # the capture is taken off
-    g()
-    g()
+    g, made = launches_of(lambda: graphs.Graph(lambda: out.copy_(M.matvec(x)),
+                                               "an ELL matvec"))
+    assert not made                              # the capture is taken off
+    _, made = launches_of(lambda: (g(), g()))
     torch.cuda.synchronize()
     assert torch.equal(out, ref)
-    assert K.launches - n0 == 2                  # replays count as launches
+    assert made["ell"] == 2                      # replays count as launches
 
 
 @pytest.mark.cuda

@@ -28,10 +28,10 @@ import scipy.sparse as sp
 import torch
 
 from saena_tpu_torch import AMG, Matrix, Options, generators
-from saena_tpu_torch.amg import graphs
 from saena_tpu_torch.amg import solvers as tsolvers
 from saena_tpu_torch.convert import load_hierarchy
 from saena_tpu_torch.core.coo import remove_boundary_nodes
+from saena_tpu_torch.runtime import launches_of
 
 RTOL_HIST = 1e-10
 ATOL_HIST = 1e-14      # times ||r0||
@@ -183,14 +183,9 @@ def test_cuda_graph_replay_matches_uncaptured_loop(restart, prec, max_iter):
             tsolvers._gmres, H, r, graphs=graphs_, **k, **kw),
             max_iter=max_iter)
 
-    def launches(fn):
-        before = graphs.counts()
-        out = fn()
-        return out, graphs._delta(before, graphs.counts())
-
     run(None)                                          # capture
-    (ug, rg), lg = launches(lambda: run(None))
-    (ue, re_), le = launches(lambda: run(False))
+    (ug, rg), lg = launches_of(lambda: run(None))
+    (ue, re_), le = launches_of(lambda: run(False))
     assert rg.iters == re_.iters
     it = rg.iters
     assert torch.equal(rg.history[: it + 1], re_.history[: it + 1])

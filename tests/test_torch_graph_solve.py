@@ -35,6 +35,7 @@ from saena_tpu_torch.amg import hierarchy as th
 from saena_tpu_torch.amg import solvers as tsolvers
 from saena_tpu_torch.convert import load_hierarchy
 from saena_tpu_torch.core.coo import remove_boundary_nodes
+from saena_tpu_torch.runtime import launches_of
 
 RTOL_HIST = 1e-10
 # a history entry that is a recomputed A u - rhs (residual replacement,
@@ -209,13 +210,6 @@ def _card_amg(m, **opts):
     return s
 
 
-def _launches(fn):
-    before = graphs.counts()
-    out = fn()
-    after = graphs.counts()
-    return out, (graphs._delta(before, after))
-
-
 CARD_CASES = {"poisson16": (16, {}), "coarse_cg": (16, {"direct_solver": "CG"}),
               "coarse_lu": (20, {"max_level": 1})}
 
@@ -240,8 +234,8 @@ def test_cuda_graph_replay_matches_uncaptured_loop(case, loop):
                       max_iter=max_iter)
 
     run(None)                                          # capture
-    (ug, rg), lg = _launches(lambda: run(None))
-    (ue, re_), le = _launches(lambda: run(False))
+    (ug, rg), lg = launches_of(lambda: run(None))
+    (ue, re_), le = launches_of(lambda: run(False))
     assert rg.iters == re_.iters
     it = rg.iters
     assert torch.equal(rg.history[: it + 1], re_.history[: it + 1])

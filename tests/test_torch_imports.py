@@ -55,3 +55,39 @@ def test_source_imports_no_jax_and_no_saena_tpu(path):
             if _forbidden(node.module or ""):
                 bad.append(node.module)
     assert not bad, f"{path} imports {bad}"
+
+
+KERNEL_WRAPPERS = ("dia_spmv", "strip_spmv", "strip8_spmv", "ell_spmv", "csr_spgemm")
+
+
+def test_launches_are_counted_in_runtime_only():
+    """The graph runner imports no kernel wrapper, and no module of ops/
+    keeps a launch counter of its own at module level: the wrappers record
+    their launches in runtime.launches."""
+    path = os.path.join(ROOT, "saena_tpu_torch", "amg", "graphs.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names += [f"{node.module or ''}.{a.name}" for a in node.names]
+    assert not [n for n in names for w in KERNEL_WRAPPERS if f"ops.{w}" in n]
+    ops = os.path.join(ROOT, "saena_tpu_torch", "ops")
+    counters = []
+    for name in sorted(os.listdir(ops)):
+        if not name.endswith(".py"):
+            continue
+        with open(os.path.join(ops, name)) as f:
+            body = ast.parse(f.read(), name).body
+        for node in body:
+            if isinstance(node, ast.Assign):
+                targets = node.targets
+            elif isinstance(node, (ast.AnnAssign, ast.AugAssign)):
+                targets = [node.target]
+            else:
+                continue
+            counters += [f"{name}:{t.id}" for tgt in targets for t in ast.walk(tgt)
+                         if isinstance(t, ast.Name) and t.id.endswith("launches")]
+    assert not counters

@@ -727,7 +727,7 @@ def test_cuda_sharded_graph_solve_matches_uncaptured_loop():
     uncaptured, with equal launches."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    from saena_tpu_torch.amg import graphs
+    from saena_tpu_torch.runtime import launches_of
 
     A, rhs = _interior(20)
     _, info = th.setup(A, Options(), dtype=F64, device="cuda")
@@ -735,10 +735,9 @@ def test_cuda_sharded_graph_solve_matches_uncaptured_loop():
     sh, splits = S.shard_hierarchy(info, Options(**R500), cmesh, dtype=F64)
     runs = []
     for g in (False, True, True):
-        before = graphs.counts()
-        out = S.sharded_solve_pCG(sh, splits, rhs, cmesh, graphs=g)
+        runs.append(launches_of(
+            lambda: S.sharded_solve_pCG(sh, splits, rhs, cmesh, graphs=g)))
         torch.cuda.synchronize()
-        runs.append((out, graphs._delta(before, graphs.counts())))
     (u0, it0, *_, h0), l0 = runs[0]
     for (u, it, *_, h), l in runs[1:]:
         assert it == it0 and np.array_equal(u, u0)

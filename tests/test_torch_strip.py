@@ -25,6 +25,7 @@ from saena_tpu_torch.generators import laplacian3D
 from saena_tpu_torch.ops import chunks
 from saena_tpu_torch.ops import strip_spmv as ts
 from saena_tpu_torch.ops.formats import pad_to
+from saena_tpu_torch.runtime import launches_of
 
 PERROWS = (1, 2, 4, 8, 16)
 
@@ -330,9 +331,9 @@ def test_wrapper_uses_plain_on_cpu_without_counting():
     A = _rect()
     M = ts.strip_from_csr(A, torch.float64, "cpu")
     x = torch.from_numpy(_x(A.shape[1]))
-    before = ts.launches
-    assert torch.equal(ts.strip_spmv(M, x), ts.strip_spmv_plain(M, x))
-    assert ts.launches == before
+    y, made = launches_of(lambda: ts.strip_spmv(M, x))
+    assert torch.equal(y, ts.strip_spmv_plain(M, x))
+    assert not made
 
 
 def test_wrapper_raises_on_other_devices():
@@ -346,11 +347,9 @@ def _cuda_check(M, x, n):
     """Kernel against the plain version (row-sum-scaled error 1e-5 in f32,
     1e-12 in f64), two launches bitwise equal, padding rows zero, tickets
     left zero."""
-    before = ts.launches
-    yk = ts.strip_spmv(M, x)
-    yk2 = ts.strip_spmv(M, x)
+    (yk, yk2), made = launches_of(lambda: (ts.strip_spmv(M, x), ts.strip_spmv(M, x)))
     torch.cuda.synchronize()
-    assert ts.launches == before + 2
+    assert made["strip"] == 2
     assert torch.equal(yk, yk2)
     yp = ts.strip_spmv_plain(M, x)
     absM = copy.copy(M)

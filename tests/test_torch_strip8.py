@@ -26,6 +26,7 @@ import torch
 from saena_tpu_torch.ops import chunks
 from saena_tpu_torch.ops import strip8_spmv as t8
 from saena_tpu_torch.ops.formats import pad_to
+from saena_tpu_torch.runtime import launches_of
 
 FIELDS = ("idx", "vals", "strips", "gather_idx")
 
@@ -403,9 +404,9 @@ def test_jax_native_layout_walks_its_tile_list(mode, jx):
 def test_wrapper_uses_plain_on_cpu_without_counting():
     M = t8.strip8_from_csr(MATRICES["300x300"](), torch.float64, "cpu")
     x = torch.from_numpy(_x(300))
-    before = t8.launches
-    assert torch.equal(t8.strip8_spmv(M, x), t8.strip8_spmv_plain(M, x))
-    assert t8.launches == before
+    y, made = launches_of(lambda: t8.strip8_spmv(M, x))
+    assert torch.equal(y, t8.strip8_spmv_plain(M, x))
+    assert not made
 
 
 def test_wrapper_raises_on_other_devices():
@@ -419,11 +420,9 @@ def _cuda_check(M, x, n):
     """Kernel against the plain version (row-sum-scaled error 1e-5 in f32,
     1e-12 in f64), two launches bitwise equal, padding rows zero, tickets
     left zero."""
-    before = t8.launches
-    yk = t8.strip8_spmv(M, x)
-    yk2 = t8.strip8_spmv(M, x)
+    (yk, yk2), made = launches_of(lambda: (t8.strip8_spmv(M, x), t8.strip8_spmv(M, x)))
     torch.cuda.synchronize()
-    assert t8.launches == before + 2
+    assert made["strip8"] == 2
     assert torch.equal(yk, yk2)
     yp = t8.strip8_spmv_plain(M, x)
     absM = copy.copy(M)

@@ -12,6 +12,7 @@ import collections
 import itertools
 import json
 import os
+import sys
 import threading
 import time
 import tracemalloc
@@ -252,3 +253,32 @@ def test_the_loader_counts_its_build_seconds(monkeypatch):
     assert cuda_build.build_s == 3.5 and cuda_build.load("dia_spmv") is lib
     cuda_build.load("strip_spmv")
     assert cuda_build.build_s == 3.5
+
+
+def test_launched_loses_no_count_across_threads():
+    """runtime.launched from more threads than cores (the setup's pool
+    launches K5 from its workers) loses no launch, and launches_of gives
+    each key's count: the kernel, the routes taken and the shape."""
+    n_threads, per = (os.cpu_count() or 4) + 4, 200
+
+    def work():
+        for _ in range(per):
+            runtime.launched("probe", (3, 5), taken=True, skipped=False)
+
+    threads = [threading.Thread(target=work) for _ in range(n_threads)]
+
+    def run():
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        _, made = runtime.launches_of(run)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    n = n_threads * per
+    assert made == collections.Counter({"probe": n, "probe.taken": n, ("probe", 3, 5): n})

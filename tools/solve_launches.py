@@ -7,10 +7,10 @@ torch version, for the m^3 Poisson interior on the card.
 
 Sets the interior up in float64 as the benchmark's configurations do
 (Options(remove_boundary=True)), prints the levels and their formats, runs
-a warm solve (the graph capture), then counts the wrappers' launches over
-``--solves`` solves of seeded uniform(-1, 1) right-hand sides (graph
-replays counted as the uncaptured loop makes them, amg/graphs.py) and
-prints them per solve. Each ELL operator (a level's A, P or R) is then
+a warm solve (the graph capture), then counts the kernels' launches over
+``--solves`` solves of seeded uniform(-1, 1) right-hand sides
+(runtime.launches: graph replays counted as the uncaptured loop makes
+them) and prints them per solve. Each ELL operator (a level's A, P or R) is then
 timed with the L2 flushed before each launch (CUDA events; its rows' and
 tiles' lengths beside it), through the kernel and through
 ``ell_spmv_plain`` (chip_smoke.flushed_us). The first line is the card's
@@ -40,9 +40,9 @@ def main() -> int:
 
     from chip_smoke import flushed_us
     from saena_tpu_torch import AMG, Matrix, Options, generators
-    from saena_tpu_torch.amg import graphs
     from saena_tpu_torch.ops import ell_spmv as K
     from saena_tpu_torch.ops.formats import EllMatrix
+    from saena_tpu_torch.runtime import launches_of
 
     if not torch.cuda.is_available():
         print("no CUDA card", file=sys.stderr)
@@ -64,21 +64,22 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     amg.set_rhs(rng.uniform(-1, 1, m ** 3))
     amg.solve_pCG()                                  # the capture
-    before = graphs.counts()
     ms, iters = [], []
-    for _ in range(args.solves):
-        amg.set_rhs(rng.uniform(-1, 1, m ** 3))
-        t0 = time.perf_counter()
-        _, res = amg.solve_pCG()
-        ms.append((time.perf_counter() - t0) * 1e3)
-        iters.append(int(res.iters))
-    ints, shapes = graphs._delta(before, graphs.counts())
-    per = lambda v: v / args.solves
+
+    def solves():
+        for _ in range(args.solves):
+            amg.set_rhs(rng.uniform(-1, 1, m ** 3))
+            t0 = time.perf_counter()
+            _, res = amg.solve_pCG()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            iters.append(int(res.iters))
+
+    _, made = launches_of(solves)
+    per = {k: v / args.solves for k, v in made.items()}
     out = {"grid": m, "solve_ms": ms, "iters": iters,
-           "launches_per_solve": {f"{mod.__name__.rsplit('.', 1)[1]}.{a}": per(v)
-                                  for (mod, a), v in ints.items()},
-           "shapes_per_solve": {f"{mod.__name__.rsplit('.', 1)[1]} {k}": per(v)
-                                for mod, d in shapes.items() for k, v in d.items()}}
+           "launches_per_solve": {k: v for k, v in per.items() if isinstance(k, str)},
+           "shapes_per_solve": {" ".join(map(str, k)): v for k, v in per.items()
+                                if isinstance(k, tuple)}}
     ell = []
     for lv, L in enumerate(amg.hierarchy.levels):
         for name in ("A", "P", "R"):
