@@ -1083,11 +1083,13 @@ def cpu_twin(solver):
 
     from saena_tpu_torch import AMG
     from saena_tpu_torch.amg.hierarchy import _DoneFuture, devicify
+    from saena_tpu_torch.api import _SolveVectors
 
     info = solver.info
     cpu = AMG(device="cpu", dtype=torch.float64)
     cpu.opts, cpu.params = solver.opts, solver.params
-    cpu._bound, cpu._rhs = solver._bound, solver._rhs
+    cpu._io = _SolveVectors(solver._io.n_full, cpu.device, solver._io.split)
+    cpu._rhs = solver._rhs
     eigs = {l: _DoneFuture(L.eig_max)
             for l, L in enumerate(solver.hierarchy.levels) if L.eig_max is not None}
     cpu.hierarchy, cpu.info = devicify(
@@ -2938,13 +2940,14 @@ def main() -> int:
     if not {"_vcycle_iter", "_smoother_iter", "_cg", "_gmres"} <= loops:
         return fail(f"phase 3d's loops did not run through graphs: {sorted(loops)}")
     print(f"[3e] lazy updates on the card, f64, against the same sequence on the CPU")
-    saved64 = [(sv, sv.hierarchy, sv._bound) for sv in (solver64, cpu64)]
+    saved64 = [(sv, sv.hierarchy, sv._io.split[2]) for sv in (solver64, cpu64)]
     (lazy, bad), launches_e, bad_count = counted(lambda: lazy_updates(solver64, cpu64))
     if bad or bad_count:
         return fail(f"lazy updates: {bad or bad_count}")
     print(f"[3e] launches: {launch_table(launches_e)}")
-    for sv, H, bound in saved64:                 # back to the phase-3a state
-        sv.hierarchy, sv._bound = H, bound
+    for sv, H, bound_diag in saved64:            # back to the phase-3a state
+        sv.hierarchy = H
+        sv._io.set_bound_diag(bound_diag)
 
     print(f"[3f] the {M}^3 solves as graph replays against the uncaptured loop, "
           f"the coarsest CG in the graph, a failed capture, the f32 profiles; {card}")

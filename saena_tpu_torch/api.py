@@ -30,7 +30,13 @@ from saena_tpu_torch.core.coo import CooBuilder, remove_boundary_nodes
 from saena_tpu_torch.io.readers import read_matrix, write_bin, write_mtx
 from saena_tpu_torch.ops.formats import device_matrix_from_csr, pad_to
 from saena_tpu_torch.parallel.dist_setup import dist_setup
-from saena_tpu_torch.runtime import PhaseTimer, resolve_device, resolve_dtype, span
+from saena_tpu_torch.runtime import (
+    PhaseTimer,
+    copied,
+    resolve_device,
+    resolve_dtype,
+    span,
+)
 from saena_tpu_torch.vector import SaenaVector as Vector
 
 
@@ -143,6 +149,81 @@ class Matrix:
         return M.matvec(x)[:n].cpu().numpy()
 
 
+class _SolveVectors:
+    """A solve's vectors between the caller's host arrays and ``device``,
+    for a system of ``n_full`` rows; made by ``AMG.set_matrix``.
+
+    ``split`` is the host boundary split of remove_boundary_nodes (interior
+    indices, boundary indices, boundary diagonal), or None. The indices are
+    kept as tensors and the diagonal as a float64 vector on ``device``;
+    ``set_bound_diag`` refreshes the diagonal after a lazy update (the
+    indices are pattern-only). Two host staging buffers of n_full float64,
+    pinned on a CUDA device, carry the rhs in and the answer out: a solve
+    makes one copy each way (counted in ``runtime.copies``), and the
+    gather, the zero padding, the casts, the boundary division and the
+    merge run on the device, with the host path's arithmetic, so the
+    answers are the same bit for bit."""
+
+    def __init__(self, n_full: int, device: torch.device, split=None):
+        self.n_full, self.device, self.split = n_full, device, None
+        pinned = device.type == "cuda"
+        self.route = "pinned" if pinned else "host"
+        self._in, self._out = (torch.empty(n_full, dtype=torch.float64, pin_memory=pinned)
+                               for _ in range(2))
+        # on the card, the rhs's copy out of self._in is asynchronous: the
+        # next solve waits for it before writing the buffer again
+        self._in_read = torch.cuda.Event() if pinned else None
+        if split is not None:
+            self.split = split
+            self._interior, self._bound = (torch.as_tensor(ix, device=device)
+                                           for ix in split[:2])
+            self.set_bound_diag(split[2])
+
+    def set_bound_diag(self, diag: np.ndarray) -> None:
+        self.split = (*self.split[:2], diag)
+        self._diag = torch.as_tensor(diag, dtype=torch.float64, device=self.device)
+
+    def upload(self, rhs: np.ndarray, n: int, n_pad: int, dtype):
+        """(the interior rhs, zero padded to ``n_pad`` at ``dtype`` on the
+        device, the boundary solution rhs_b / diag_b in float64 or None)."""
+        if rhs.shape != (self.n_full,):
+            raise ValueError(f"rhs of shape {rhs.shape} for a system of "
+                             f"{self.n_full} rows")
+        if self._in_read is not None:
+            self._in_read.synchronize()
+        np.copyto(self._in.numpy(), rhs)
+        full = self._in.to(self.device, non_blocking=True)
+        if self._in_read is not None:
+            self._in_read.record(torch.cuda.current_stream(self.device))
+        copied("h2d", self.route, 8 * self.n_full)
+        rhs_p = torch.zeros(n_pad, dtype=dtype, device=self.device)
+        if self.split is None:
+            rhs_p[:n] = full
+            return rhs_p, None
+        rhs_p[:n] = full[self._interior]
+        # a division, not a product with the reciprocal: the host's bits
+        return rhs_p, full[self._bound] / self._diag
+
+    def merge(self, u: torch.Tensor, bound_sol) -> torch.Tensor:
+        """The full float64 solution on the device: the interior ``u`` (n
+        rows) with the boundary solution scattered in (ref
+        add_boundary_sol, saena_object.cpp:753)."""
+        u = u.to(torch.float64)
+        if self.split is None:
+            return u
+        full = torch.empty(self.n_full, dtype=torch.float64, device=self.device)
+        full.index_copy_(0, self._interior, u)
+        full.index_copy_(0, self._bound, bound_sol)
+        return full
+
+    def download(self, full: torch.Tensor) -> np.ndarray:
+        """``full`` as a new host array, which a later solve leaves as it
+        is. The copy into the staging buffer synchronises the stream."""
+        self._out.copy_(full)
+        copied("d2h", self.route, 8 * self.n_full)
+        return self._out.numpy().copy()
+
+
 class AMG:
     """saena::amg analog (saena.hpp:195-265). The hierarchy lives on
     ``device`` (the card unless named) at ``dtype`` (torch's default unless
@@ -157,7 +238,7 @@ class AMG:
         self.params: Optional[_hier.SolveParams] = None
         self._rhs: Optional[np.ndarray] = None
         self._rhs_vector: Optional[Vector] = None
-        self._bound = None       # boundary-removal bookkeeping
+        self._io: Optional[_SolveVectors] = None   # a solve's host <-> device vectors
         self.verbose = False
 
     def set_matrix(self, A: Matrix, opts: Optional[Options] = None,
@@ -174,13 +255,12 @@ class AMG:
         if opts is not None:
             self.opts = opts
         with span("saena.set_matrix"):
-            csr = A.csr
-            self._bound = None
+            csr, split = A.csr, None
+            n_full = csr.shape[0]
             if self.opts.remove_boundary:
                 Ai, interior, bound, bound_diag, _ = remove_boundary_nodes(csr)
                 if bound.size:
-                    self._bound = (interior, bound, bound_diag, csr.shape[0])
-                    csr = Ai
+                    split, csr = (interior, bound, bound_diag), Ai
             if self.opts.setup_shards:
                 self.hierarchy, self.info = dist_setup(
                     csr, self.opts, dtype=self.dtype, device=self.device,
@@ -190,6 +270,7 @@ class AMG:
                 self.hierarchy, self.info = _hier.setup(
                     csr, self.opts, dtype=self.dtype, device=self.device,
                     use_dense=A._use_dense, p_levels=p_levels)
+            self._io = _SolveVectors(n_full, self.device, split)
         self.params = _hier.SolveParams.from_options(self.opts)
         if self.opts.verbose or self.verbose:
             print(self.info.table())
@@ -206,36 +287,29 @@ class AMG:
         return self
 
     # ---- solves: each returns (u, SolveResult), u the host solution of the
-    # full system (boundary rows merged back when they were removed). Under
-    # a torch profiler a solve is the span saena.solve, its host rhs work
-    # saena.api.rhs, the copy of u to the host saena.api.download and the
-    # boundary merge saena.api.merge ----
+    # full system (boundary rows merged back when they were removed). The
+    # vectors cross between host and device once each way (_SolveVectors).
+    # Under a torch profiler a solve is the span saena.solve, the rhs's copy
+    # to the device and its split there saena.api.rhs, the merge of u with
+    # the boundary rows saena.api.merge and its copy to the host
+    # saena.api.download ----
 
     def _run(self, fn, **kw):
         if self.hierarchy is None or self._rhs is None:
             raise ValueError("set_matrix() and set_rhs() first")
+        H = self.hierarchy
         with span("saena.solve"):
             with span("saena.api.rhs"):
-                rhs = self._rhs
-                if self.opts.debug and not np.isfinite(rhs).all():
+                if self.opts.debug and not np.isfinite(self._rhs).all():
                     raise FloatingPointError("rhs contains NaN/Inf")
-                if self._bound is not None:
-                    interior, bound, bound_diag, n_full = self._bound
-                    bound_sol = rhs[bound] / bound_diag
-                    rhs = rhs[interior]
-                n = self.hierarchy.n
-                rhs_p = np.pad(rhs, (0, self.hierarchy.n_pad - n))
-            res = fn(self.hierarchy, rhs_p, params=self.params,
+                rhs_p, bound_sol = self._io.upload(self._rhs, H.n, H.n_pad, H.dtype)
+            res = fn(H, rhs_p, params=self.params,
                      tol=kw.pop("tol", self.opts.tol),
                      max_iter=kw.pop("max_iter", self.opts.max_iter), **kw)
+            with span("saena.api.merge"):
+                u = self._io.merge(res.u[:H.n], bound_sol)
             with span("saena.api.download"):
-                u = res.u[:n].cpu().numpy().astype(np.float64)
-            if self._bound is not None:
-                with span("saena.api.merge"):
-                    full = np.zeros(n_full)
-                    full[interior] = u
-                    full[bound] = bound_sol  # ref add_boundary_sol, saena_object.cpp:753
-                    u = full
+                u = self._io.download(u)
         if self.opts.debug and not np.isfinite(u).all():
             raise FloatingPointError(
                 f"solution contains NaN/Inf after {res.iters} iterations "
@@ -269,13 +343,12 @@ class AMG:
         stored interior / boundary index sets (pattern-only, so a
         same-pattern refresh keeps them) cut the new full matrix down to
         the interior system, and the boundary diagonal takes the new
-        values (u_b = rhs_b / diag_b)."""
-        if self._bound is None:
-            return csr
-        interior, bound, bound_diag, n_full = self._bound
-        if csr.shape[0] != n_full:
-            return csr   # the caller passed an interior-sized matrix
-        self._bound = (interior, bound, csr.diagonal()[bound], n_full)
+        values (u_b = rhs_b / diag_b), on the host and on the device."""
+        io = self._io
+        if io.split is None or csr.shape[0] != io.n_full:
+            return csr   # no split, or the caller passed an interior-sized matrix
+        interior, bound, _ = io.split
+        io.set_bound_diag(csr.diagonal()[bound])
         return csr[interior][:, interior].tocsr()
 
     def _check_updatable(self) -> None:
@@ -499,3 +572,4 @@ class AMG:
     def destroy(self) -> None:
         self.hierarchy = None
         self.info = None
+        self._io = None

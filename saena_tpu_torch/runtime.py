@@ -1,6 +1,6 @@
 """Device and dtype resolution, the setup phase timer, the spans that
-mark the port's layers in a torch.profiler trace, and the count of the
-hand-written kernels' launches.
+mark the port's layers in a torch.profiler trace, the count of the
+hand-written kernels' launches and the count of the API's vector copies.
 
 ``launches`` counts every launch of the five kernels in the process, by
 key: the kernel (``"dia"``, ``"strip"``, ``"strip8"``, ``"ell"``,
@@ -13,7 +13,14 @@ shard's view, ``"<kernel>.bf16"``: bf16 values); and K1's and K4's shapes,
 wrapper records a launch with ``launched`` once the kernel has been
 launched. A graph replay runs no wrapper: amg/graphs.py adds each replay's
 launches, so the counts are those of the same loop run uncaptured.
-``launches_of`` gives the launches made by one call."""
+``launches_of`` gives the launches made by one call.
+
+``copies`` counts the copies of a solve's vectors between the caller's
+host arrays and the device that the API makes (``AMG.solve*``), by
+direction and route: ``"h2d.pinned"`` / ``"d2h.pinned"`` through a pinned
+staging buffer (a CUDA device), ``"h2d.host"`` / ``"d2h.host"`` through an
+unpinned one (the CPU), and the bytes each way, ``"h2d.bytes"`` and
+``"d2h.bytes"``. ``copies_of`` gives the copies made by one call."""
 from __future__ import annotations
 
 import threading
@@ -27,13 +34,14 @@ import torch.autograd.profiler as _autograd_profiler
 
 
 launches: Counter = Counter()
-_LAUNCH_LOCK = threading.Lock()      # the setup's pool threads launch K5
+copies: Counter = Counter()
+_LOCK = threading.Lock()      # the setup's pool threads launch K5
 
 
 def launched(kernel: str, shape: tuple = (), **routes: bool) -> None:
     """Count one launch of ``kernel``: under each route that is true, and
     under ``(kernel, *shape)`` when a shape is given."""
-    with _LAUNCH_LOCK:
+    with _LOCK:
         launches[kernel] += 1
         for route, took in routes.items():
             if took:
@@ -42,13 +50,30 @@ def launched(kernel: str, shape: tuple = (), **routes: bool) -> None:
             launches[(kernel, *shape)] += 1
 
 
+def copied(direction: str, route: str, nbytes: int) -> None:
+    """Count one copy of ``nbytes`` of a solve's vector in ``direction``
+    (``"h2d"`` or ``"d2h"``) by ``route`` (``"pinned"`` or ``"host"``)."""
+    with _LOCK:
+        copies[f"{direction}.{route}"] += 1
+        copies[f"{direction}.bytes"] += nbytes
+
+
+def _made(counter: Counter, fn):
+    with _LOCK:
+        before = counter.copy()
+    out = fn()
+    with _LOCK:
+        return out, counter - before
+
+
 def launches_of(fn):
     """(fn(), the launches it made, a Counter)."""
-    with _LAUNCH_LOCK:
-        before = launches.copy()
-    out = fn()
-    with _LAUNCH_LOCK:
-        return out, launches - before
+    return _made(launches, fn)
+
+
+def copies_of(fn):
+    """(fn(), the API's vector copies it made, a Counter)."""
+    return _made(copies, fn)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""The kernels' launches in one pCG solve, by kernel and by shape, and every
-ELL operator of the hierarchy timed through the ELL kernel and its plain
-torch version, for the m^3 Poisson interior on the card.
+"""The kernels' launches in one pCG solve, by kernel and by shape, the API's
+copies of the solve's vectors between host and card, and every ELL
+operator of the hierarchy timed through the ELL kernel and its plain torch
+version, for the m^3 Poisson interior on the card.
 
     python3 tools/solve_launches.py [--m 96] [--solves 4] [--seed 0]
 
@@ -10,11 +11,12 @@ Sets the interior up in float64 as the benchmark's configurations do
 a warm solve (the graph capture), then counts the kernels' launches over
 ``--solves`` solves of seeded uniform(-1, 1) right-hand sides
 (runtime.launches: graph replays counted as the uncaptured loop makes
-them) and prints them per solve. Each ELL operator (a level's A, P or R) is then
-timed with the L2 flushed before each launch (CUDA events; its rows' and
-tiles' lengths beside it), through the kernel and through
-``ell_spmv_plain`` (chip_smoke.flushed_us). The first line is the card's
-name and power limit; the last is one JSON object.
+them) and the API's vector copies by direction and route with their bytes
+(runtime.copies), and prints both per solve. Each ELL operator (a level's
+A, P or R) is then timed with the L2 flushed before each launch (CUDA
+events; its rows' and tiles' lengths beside it), through the kernel and
+through ``ell_spmv_plain`` (chip_smoke.flushed_us). The first line is the
+card's name and power limit; the last is one JSON object.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ def main() -> int:
     from saena_tpu_torch import AMG, Matrix, Options, generators
     from saena_tpu_torch.ops import ell_spmv as K
     from saena_tpu_torch.ops.formats import EllMatrix
-    from saena_tpu_torch.runtime import launches_of
+    from saena_tpu_torch.runtime import copies_of, launches_of
 
     if not torch.cuda.is_available():
         print("no CUDA card", file=sys.stderr)
@@ -74,9 +76,10 @@ def main() -> int:
             ms.append((time.perf_counter() - t0) * 1e3)
             iters.append(int(res.iters))
 
-    _, made = launches_of(solves)
+    (_, made), copied = copies_of(lambda: launches_of(solves))
     per = {k: v / args.solves for k, v in made.items()}
     out = {"grid": m, "solve_ms": ms, "iters": iters,
+           "copies_per_solve": {k: v / args.solves for k, v in copied.items()},
            "launches_per_solve": {k: v for k, v in per.items() if isinstance(k, str)},
            "shapes_per_solve": {" ".join(map(str, k)): v for k, v in per.items()
                                 if isinstance(k, tuple)}}
